@@ -14,10 +14,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. TF32 off for matmuls and cuDNN convolutions (fp32 everywhere), and
    cuDNN autotuning on (its default heuristic picks FFT convolutions for
    the fp32 3x3 BEV convs, 60x slower here);
-4. K1 (``subm_conv_gemm``) against its plain version at the stage-0 and
-   stage-3 shapes of the synthetic batch's sparse tables;
-5. K2 (``local_attn_fwd``) against its plain version at [6,112,200,128]
-   and [1,180,180,128], k=9;
+4. K1 (``subm_conv_gemm``) against its plain version at the nine conv
+   shapes of one eval frame (``conv_input``, stages 0-3, ``down0-2``,
+   ``conv_out``, from the synthetic batch's tables) and at a random table
+   with 9 hits per row; per shape the kernel's and the plain version's
+   device time, the bound and what sets it, the share of the bound, the
+   launches per frame and their sum of launches x time;
+5. K2 (``local_attn_fwd``) the same at [6,112,200,128] (4 launches a
+   frame) and [1,180,180,128] (2), k=9;
 6. the tiny config on the card against the port's CPU path (which the CPU
    tests hold to the JAX package);
 7. the full slice through the kernels, with the launch counters set to 0
@@ -29,22 +33,24 @@ The second slice is the LiDAR-only (TransFusion-L, ``lidar_only_config``)
 detector, eval and one train step, through K1's forward and its backward
 kernels (d/dfeat: K1 over the inverse table; d/dW: ``subm_conv_wgrad``):
 
-8. K1's backward against autograd of its plain version at the train
-   batch's stage-0 (16->16) and stage-3 (128->128) tables, ``down0``
-   (16->32), ``conv_out`` (3 taps, 128->128) and a random table with 9
-   hits per row;
+8. K1's forward, d/dfeat and d/dW against autograd of the plain version at
+   the nine conv shapes of the train batch's tables and a random table
+   with 9 hits per row; times as in phase 4, summed per train step;
 9. one ``tiny_lidar_config`` train step on the card against the port's
    CPU path (which tests/test_torch_port_train.py holds to JAX);
 10. full width, B=2: one eval frame + ``get_bboxes``; one train step with
     the launch counters set to 0 just before and read just after; the
     sparse encoder's gradients against a step with K1 swapped for its plain
-    versions on the same matching; then ms/step (2 warm-ups, 5 timed) and
-    peak memory.
+    versions on the same matching, ReLU masks and proposal order; then
+    ms/step (2 warm-ups, 5 timed) and peak memory.
 
-The line before the last is the kernels' JSON record, each kernel with its
-time beside its plain version's and its bound at one main-path shape; the
-last line is ``{"ok": true, "device": {...}}``. Usage:
-``python3 chip_smoke.py``.
+A bound is the larger of the bytes (each input read once, each output
+written once) over 3.35 TB/s and the useful operations over the peak rate
+of the units the kernel multiplies on: TF32 tensor cores for K1's forward,
+d/dfeat and K2 (split TF32), fp32 CUDA cores for d/dW. The line before the
+last is the kernels' JSON record, each kernel with its numbers at one
+main-path shape and at every shape it was timed at; the last line is
+``{"ok": true, "device": {...}}``. Usage: ``python3 chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -72,8 +78,8 @@ from deepinteraction_tpu_torch.ops.voxelize import voxelize
 from deepinteraction_tpu_torch.train.step import TrainStep
 from deepinteraction_tpu_torch.utils.synthetic import init_weights, make_synthetic_batch, to_torch
 
-# K1 and K2 compute in fp32 like their plain versions; only the summation
-# order differs
+# K1 and K2 keep fp32 accuracy like their plain versions (split TF32 on the
+# tensor cores, fp32 on CUDA cores for d/dW); only the summation order differs
 K1_TOL = 1e-4  # max|kernel - plain| / max|plain|
 K2_TOL = 2e-5  # absolute and relative, as torch.testing.assert_close
 SLICE_TOL = 1e-3  # max|d| / max|plain| for the BEV map and MMRI outputs
@@ -82,11 +88,16 @@ TINY_RTOL, TINY_ATOL = 2e-3, 5e-4  # the golden fixtures' tolerance
 # grad norm rtol 1e-3, each gradient leaf 1e-3 of its scale (a leaf whose
 # gradient is 0 in exact arithmetic holds noise below 1e-8 of the largest)
 TRAIN_RTOL, GRAD_TOL, GRAD_NOISE = 1e-3, 1e-3, 1e-8
-REPS, WARMUP = 10, 3
+REPS, WARMUP, BATCH = 10, 3, 5
 TRAIN_REPS, TRAIN_WARMUP = 5, 2
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, fp32 FLOP/s
-# outside the tensor cores (both kernels multiply in fp32 on CUDA cores)
-HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, and FLOP/s of the
+# units each kernel multiplies on: dense TF32 on the tensor cores for K1's
+# forward (so d/dfeat) and K2, which run split TF32 and are bounded over the
+# useful operations, not the three TF32 products of each; fp32 on CUDA cores
+# for subm_conv_wgrad
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = {"tf32": 495e12, "fp32": 67e12}
+K1_UNITS = {"fwd": "tf32", "dgrad": "tf32", "wgrad": "fp32"}
 
 
 def log(*a):
@@ -94,17 +105,21 @@ def log(*a):
 
 
 def device_time_ms(fn) -> float:
-    """Median CUDA-event time of one call, over REPS after WARMUP calls."""
+    """Device time of one call: the median over REPS samples, after WARMUP
+    calls, of CUDA-event time around BATCH back-to-back calls over BATCH.
+    Back to back, the host enqueues ahead of the card, so its launch
+    overhead overlaps the device work instead of being timed with it."""
     for _ in range(WARMUP):
         fn()
     times = []
     for _ in range(REPS):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(BATCH):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / BATCH)
     return statistics.median(times)
 
 
@@ -113,11 +128,12 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple:
     return err, err / max(ref.abs().max().item(), 1e-30)
 
 
-def bound(n_bytes: float, flops: float) -> dict:
+def bound(n_bytes: float, flops: float, units: str) -> dict:
     """Least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the fp32 rate."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    memory rate and the operations over the peak rate of ``units``."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOP_PER_S[units] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "peak": f"{units} {PEAK_FLOP_PER_S[units] / 1e12:g} TFLOP/s"}
 
 
 def k1_bound(kind: str, nbr, valid_out, kin: int, cin: int, cout: int) -> dict:
@@ -132,7 +148,21 @@ def k1_bound(kind: str, nbr, valid_out, kin: int, cin: int, cout: int) -> dict:
         "dgrad": ko * cout + kin * taps + w + kin * cin + kin / 4,  # dy, inv, W^T, dfeat, valid
         "wgrad": kin * cin + ko * taps + ko * cout + w,  # feat, nbr, dy, dW
     }[kind] * 4
-    return bound(n_bytes, 2.0 * hits * cin * cout)
+    return bound(n_bytes, 2.0 * hits * cin * cout, K1_UNITS[kind])
+
+
+def timing(kern, plain, bd: dict, launches: int) -> dict:
+    """Kernel and plain times beside the bound, the share of the bound the
+    kernel reaches, and launches x time on the path."""
+    ms, plain_ms = device_time_ms(kern), device_time_ms(plain)
+    return dict(ms=ms, plain_ms=plain_ms, **bd, share=bd["bound_ms"] / ms, launches=launches,
+                launch_ms=launches * ms)
+
+
+def timing_text(t: dict) -> str:
+    return (f"kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
+            f"({t['bound_by']}, {t['peak']}) share={100 * t['share']:.1f}% launches={t['launches']} "
+            f"launches*ms={t['launch_ms']:.4f}")
 
 
 @contextlib.contextmanager
@@ -175,87 +205,145 @@ def relu_masks(masks: list, replay: bool):
     assert not replay or next(replayed, None) is None, "fewer ReLU calls than recorded masks"
 
 
-def stage_tables(cfg, batch, dev):
-    """Sparse tables of the synthetic batch: (K, nbr) of stage 0 and 3."""
+@contextlib.contextmanager
+def sort_orders(orders: list, replay: bool, flips: list):
+    """Record the permutation of every ``torch.sort`` call in call order
+    (``replay=False``), or impose recorded permutations in that order
+    (``replay=True``), appending to ``flips`` each call whose own order
+    differed. The decoder picks its proposals by sorting the heatmap: two
+    fp32 runs that order two near-equal scores differently train different
+    queries, so a comparison of gradients replays one run's orders in the
+    other, as it replays its ReLU masks."""
+    sort = torch.sort
+    replayed = iter(orders)
+
+    def record(x, *a, **k):
+        out = sort(x, *a, **k)
+        orders.append(out.indices)
+        return out
+
+    def apply(x, *a, **k):
+        own = sort(x, *a, **k).indices
+        idx = next(replayed)
+        flips.append(not torch.equal(own, idx))
+        dim = k.get("dim", a[0] if a else -1)
+        return torch.return_types.sort((torch.gather(x, dim, idx), idx))
+
+    torch.sort = apply if replay else record
+    try:
+        yield
+    finally:
+        torch.sort = sort
+    assert not replay or next(replayed, None) is None, "fewer sort calls than recorded orders"
+
+
+def encoder_tables(cfg, batch, dev, capacity: int, with_inverse: bool) -> list:
+    """K1's nine conv shapes in the sparse encoder, on sample 0 of ``batch``
+    voxelized at ``capacity``, in the order the encoder runs them:
+    [(name, nbr, inv, valid_out, kin, cin, cout, convs per sample)]; inv is
+    the inverse table d/dfeat runs over (None unless ``with_inverse``)."""
     vl = cfg.model.pts_voxel_layer
     enc = cfg.model.pts_middle_encoder
     vo = voxelize(batch["points"][0], batch["points_mask"][0], voxel_size=vl.voxel_size,
                   point_cloud_range=vl.point_cloud_range, max_num_points=vl.max_num_points,
-                  max_voxels=vl.max_voxels[1])
-    coords = vo.coords
+                  max_voxels=capacity)
+    coords, shape = vo.coords, tuple(enc.sparse_shape)
     valid = torch.arange(coords.shape[0], device=dev) < vo.num_voxels
-    shape = tuple(enc.sparse_shape)
-    tables = {0: (valid, sc.subm_neighbor_table(sc.SparseTensor(None, coords, valid, shape)))}
-    for i, pad in enumerate(sparse_encoder.SparseEncoder.STRIDED_PADS):
-        coords, valid, shape = sc.downsample_sites(
-            coords, valid, shape, (3, 3, 3), (2, 2, 2), pad, enc.stage_capacities[i + 1]
-        )
-    tables[3] = (valid, sc.subm_neighbor_table(sc.SparseTensor(None, coords, valid, shape)))
-    return tables
+
+    def subm():
+        nbr = sc.subm_neighbor_table(sc.SparseTensor(None, coords, valid, shape))
+        return nbr, sc.mirror_table(nbr) if with_inverse else None
+
+    def down(kernel, stride, pad, cap):
+        oc, ov, oshape = sc.downsample_sites(coords, valid, shape, kernel, stride, pad, cap)
+        snbr = sc.strided_neighbor_table(sc.SparseTensor(None, coords, valid, shape), oc, ov, kernel, stride, pad)
+        return (snbr, sc.inverse_table(snbr, coords.shape[0]) if with_inverse else None, ov), (oc, ov, oshape)
+
+    nbr, inv = subm()
+    k = coords.shape[0]
+    out = [("conv_input", nbr, inv, valid, k, enc.in_channels, enc.base_channels, 1)]
+    specs = enc.encoder_channels
+    for i, blocks in enumerate(specs):
+        ch, last = blocks[0], i == len(specs) - 1
+        n_basic = len(blocks) if last else len(blocks) - 1
+        out.append((f"stage{i}", nbr, inv, valid, k, ch, ch, 2 * n_basic))
+        if last:
+            break
+        (snbr, sinv, ov), (coords, valid, shape) = down(
+            (3, 3, 3), (2, 2, 2), sparse_encoder.SparseEncoder.STRIDED_PADS[i], enc.stage_capacities[i + 1])
+        out.append((f"down{i}", snbr, sinv, ov, k, ch, blocks[-1], 1))
+        nbr, inv = subm()
+        k = coords.shape[0]
+    (snbr, sinv, ov), _ = down((3, 1, 1), (2, 1, 1), (0, 0, 0), k)
+    out.append(("conv_out", snbr, sinv, ov, k, specs[-1][-1], enc.output_channels, 1))
+    return out
 
 
 def check_k1(cfg, batch, dev, gen):
-    tables = stage_tables(cfg, batch, dev)
-    rec = {"max_abs_err": 0.0}
-    for stage, cin, cout in ((0, 16, 16), (3, 128, 128)):
-        valid, nbr = tables[stage]
-        k = nbr.shape[0]
-        hits = (nbr < k).float().mean().item() * 27
-        feats = torch.randn(k, cin, generator=gen).to(dev)
-        w = (torch.randn(27, cin, cout, generator=gen) / (27 * cin) ** 0.5).to(dev)
-        out = smc.subm_conv_gemm(feats, nbr, w, valid)
-        ref = smc.gathered_matmul(feats, nbr, w, valid)
-        err, rel = rel_err(out, ref)
-        assert rel <= K1_TOL, f"K1 stage {stage}: max rel err {rel:.3e} > {K1_TOL}"
-        ms = device_time_ms(lambda: smc.subm_conv_gemm(feats, nbr, w, valid))
-        plain_ms = device_time_ms(lambda: smc.gathered_matmul(feats, nbr, w, valid))
-        bd = k1_bound("fwd", nbr, valid, k, cin, cout)
-        log(f"K1 subm_conv_gemm stage{stage} K={k} {cin}->{cout} taps hit/row={hits:.2f}: "
-            f"max_abs_err={err:.3e} max_rel_err={rel:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={bd['bound_ms']:.4f} ({bd['bound_by']})")
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if stage == 0:
-            rec.update(ms=ms, plain_ms=plain_ms, shape=f"K={k} {cin}->{cout} 27 taps")
+    """Phase 4: K1's forward against its plain version at the nine conv
+    shapes of one eval frame (and a random table with 9 hits per row);
+    times and the per-frame sum of launches x time."""
+    rec = {"max_abs_err": 0.0, "shapes": []}
+    cases = encoder_tables(cfg, batch, dev, cfg.model.pts_voxel_layer.max_voxels[1], False)
     # the synthetic cloud is uniform, so its stage-0 table is nearly empty
     # beyond the centre tap; time a table with 9 random hits per row too
-    valid, nbr = tables[0]
-    k = nbr.shape[0]
-    dense = torch.randint(0, k, nbr.shape, generator=gen, dtype=torch.int32)
-    dense[torch.rand(nbr.shape, generator=gen) >= 1 / 3] = k
-    dense = dense.to(dev)
-    feats = torch.randn(k, 16, generator=gen).to(dev)
-    w = (torch.randn(27, 16, 16, generator=gen) / (27 * 16) ** 0.5).to(dev)
-    err, rel = rel_err(smc.subm_conv_gemm(feats, dense, w, valid), smc.gathered_matmul(feats, dense, w, valid))
-    assert rel <= K1_TOL, f"K1 random table: max rel err {rel:.3e} > {K1_TOL}"
-    ms = device_time_ms(lambda: smc.subm_conv_gemm(feats, dense, w, valid))
-    plain_ms = device_time_ms(lambda: smc.gathered_matmul(feats, dense, w, valid))
-    bd = k1_bound("fwd", dense, valid, k, 16, 16)
-    log(f"K1 subm_conv_gemm random table K={k} 16->16 taps hit/row=9: "
-        f"max_abs_err={err:.3e} max_rel_err={rel:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"bound_ms={bd['bound_ms']:.4f} ({bd['bound_by']})")
-    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    _, nbr0, _, valid0, k0, _, _, _ = cases[1]
+    dense = torch.randint(0, k0, nbr0.shape, generator=gen, dtype=torch.int32)
+    dense[torch.rand(nbr0.shape, generator=gen) >= 1 / 3] = k0
+    cases.append(("random9", dense.to(dev), None, valid0, k0, 16, 16, 0))
+    per_frame = 0.0
+    for name, nbr, _, valid, kin, cin, cout, n in cases:
+        ko, taps = nbr.shape
+        hits = ((nbr < kin) & valid[:, None]).sum().item() / max(valid.sum().item(), 1)
+        feats = torch.randn(kin, cin, generator=gen).to(dev)
+        w = (torch.randn(taps, cin, cout, generator=gen) / (taps * cin) ** 0.5).to(dev)
+        err, rel = rel_err(smc.subm_conv_gemm(feats, nbr, w, valid), smc.gathered_matmul(feats, nbr, w, valid))
+        assert rel <= K1_TOL, f"K1 {name}: max rel err {rel:.3e} > {K1_TOL}"
+        t = timing(lambda: smc.subm_conv_gemm(feats, nbr, w, valid), lambda: smc.gathered_matmul(feats, nbr, w, valid),
+                   k1_bound("fwd", nbr, valid, kin, cin, cout), n)
+        shape = f"eval {name}, K={kin}->{ko} {cin}->{cout} {taps} taps, {hits:.2f} hits/row"
+        log(f"K1 subm_conv_gemm {shape}: max_abs_err={err:.3e} max_rel_err={rel:.3e} {timing_text(t)}")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["shapes"].append(dict(t, shape=shape))
+        per_frame += t["launch_ms"]
+    log(f"K1 subm_conv_gemm per fusion_base eval frame: sum of launches*ms = {per_frame:.4f} ms")
+    rec["ms_per_frame"] = per_frame
     return rec
 
 
 def check_k2(dev, gen):
-    rec = {"max_abs_err": 0.0}
-    for shape in ((6, 112, 200, 128), (1, 180, 180, 128)):
+    """Phase 5: K2 against its plain version at the two main-path shapes;
+    times and the per-frame sum of launches x time."""
+    rec = {"max_abs_err": 0.0, "shapes": []}
+    per_frame = 0.0
+    # p2i_local and i_iml of both MMRI layers; p_iml of both
+    for shape, n in (((6, 112, 200, 128), 4), ((1, 180, 180, 128), 2)):
         q, k, v = (torch.randn(shape, generator=gen).to(dev) for _ in range(3))
         out = la.local_attn_fwd(q, k, v, 9)
         ref = la.local_attention(q, k, v, 9)
         torch.testing.assert_close(out, ref, atol=K2_TOL, rtol=K2_TOL)
         err, rel = rel_err(out, ref)
-        ms = device_time_ms(lambda: la.local_attn_fwd(q, k, v, 9))
-        plain_ms = device_time_ms(lambda: la.local_attention(q, k, v, 9))
         b, h, w, c = shape
         # q, k, v read and out written once; per pixel 81 taps x (dot + axpy)
-        bd = bound(4 * 4 * b * h * w * c, b * h * w * 4 * 81 * c)
-        log(f"K2 local_attn_fwd {list(shape)} k=9: max_abs_err={err:.3e} max_rel_err={rel:.3e} "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bd['bound_ms']:.4f} ({bd['bound_by']})")
+        t = timing(lambda: la.local_attn_fwd(q, k, v, 9), lambda: la.local_attention(q, k, v, 9),
+                   bound(4 * 4 * b * h * w * c, b * h * w * 4 * 81 * c, "tf32"), n)
+        log(f"K2 local_attn_fwd {list(shape)} k=9: max_abs_err={err:.3e} max_rel_err={rel:.3e} {timing_text(t)}")
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if shape[0] == 6:
-            rec.update(ms=ms, plain_ms=plain_ms, shape=f"{list(shape)} k=9", **bd)
+        rec["shapes"].append(dict(t, shape=f"{list(shape)} k=9"))
+        per_frame += t["launch_ms"]
+    log(f"K2 local_attn_fwd per fusion_base eval frame: sum of launches*ms = {per_frame:.4f} ms")
+    rec["ms_per_frame"] = per_frame
     return rec
+
+
+def headline(rec: dict, shape: str) -> dict:
+    """A kernel's JSON record: its numbers at the main-path shape that
+    starts with ``shape``, beside every shape it was timed at and its sums
+    over the path."""
+    top = next(t for t in rec["shapes"] if t["shape"].startswith(shape))
+    return {**{k: v for k, v in rec.items() if k != "shapes"},
+            **{k: top[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "peak", "share")},
+            "shapes": rec["shapes"]}
 
 
 def check_tiny(dev):
@@ -278,45 +366,26 @@ def check_tiny(dev):
 
 def train_tables(cfg, batch, dev, gen):
     """K1's tables for sample 0 of the train batch (capacity ``max_voxels[0]``):
-    {name: (nbr, inv, valid_out, cin, cout)} for the stage-0 and stage-3
-    submanifold tables, ``down0``, ``conv_out`` and a random table with 9
-    hits per row in which each input row is reached at most once per tap."""
-    vl = cfg.model.pts_voxel_layer
-    enc = cfg.model.pts_middle_encoder
-    vo = voxelize(batch["points"][0], batch["points_mask"][0], voxel_size=vl.voxel_size,
-                  point_cloud_range=vl.point_cloud_range, max_num_points=vl.max_num_points,
-                  max_voxels=vl.max_voxels[0])
-    coords, shape = vo.coords, tuple(enc.sparse_shape)
-    k0 = coords.shape[0]
-    valid = torch.arange(k0, device=dev) < vo.num_voxels
-    nbr = sc.subm_neighbor_table(sc.SparseTensor(None, coords, valid, shape))
-    cases = {"stage0": (nbr, sc.mirror_table(nbr), valid, 16, 16)}
-    for i, pad in enumerate(sparse_encoder.SparseEncoder.STRIDED_PADS):
-        oc, ov, oshape = sc.downsample_sites(coords, valid, shape, (3, 3, 3), (2, 2, 2), pad,
-                                             enc.stage_capacities[i + 1])
-        if i == 0:
-            snbr = sc.strided_neighbor_table(sc.SparseTensor(None, coords, valid, shape), oc, ov,
-                                             (3, 3, 3), (2, 2, 2), pad)
-            cases["down0"] = (snbr, sc.inverse_table(snbr, k0), ov, 16, 32)
-        coords, valid, shape = oc, ov, oshape
-    nbr = sc.subm_neighbor_table(sc.SparseTensor(None, coords, valid, shape))
-    cases["stage3"] = (nbr, sc.mirror_table(nbr), valid, 128, 128)
-    oc, ov, _ = sc.downsample_sites(coords, valid, shape, (3, 1, 1), (2, 1, 1), (0, 0, 0), coords.shape[0])
-    snbr = sc.strided_neighbor_table(sc.SparseTensor(None, coords, valid, shape), oc, ov,
-                                     (3, 1, 1), (2, 1, 1), (0, 0, 0))
-    cases["conv_out"] = (snbr, sc.inverse_table(snbr, coords.shape[0]), ov, 128, 128)
+    the nine conv shapes of :func:`encoder_tables` with their inverse tables
+    and a random table with 9 hits per row in which each input row is
+    reached at most once per tap."""
+    cases = encoder_tables(cfg, batch, dev, cfg.model.pts_voxel_layer.max_voxels[0], True)
+    k0 = cases[0][4]
     perm = torch.stack([torch.randperm(k0, generator=gen) for _ in range(27)], 1).int()
     rnd = torch.where(torch.rand(k0, 27, generator=gen) < 1 / 3, perm, k0).to(dev)
-    cases["random9"] = (rnd, sc.inverse_table(rnd, k0), torch.ones(k0, dtype=torch.bool, device=dev), 16, 16)
-    return cases
+    every = torch.ones(k0, dtype=torch.bool, device=dev)
+    return cases + [("random9", rnd, sc.inverse_table(rnd, k0), every, k0, 16, 16, 0)]
 
 
-def check_k1_backward(cfg, batch, dev, gen):
+def check_k1_backward(cfg, batch, dev, gen, b: int):
     """Phase 8: K1's forward, d/dfeat and d/dW against autograd of the plain
-    version; kernel and plain times of the three kernels."""
-    recs = {k: {"max_abs_err": 0.0} for k in ("fwd", "dgrad", "wgrad")}
-    for name, (nbr, inv, valid, cin, cout) in train_tables(cfg, batch, dev, gen).items():
-        kin, taps = inv.shape
+    version at every conv shape of the train step; kernel and plain times
+    of the three kernels, and the per-step sums of launches x time at batch
+    ``b`` (d/dfeat does not run for ``conv_input``, whose inputs are data)."""
+    recs = {k: {"max_abs_err": 0.0, "shapes": []} for k in ("fwd", "dgrad", "wgrad")}
+    per_step = dict.fromkeys(recs, 0.0)
+    for name, nbr, inv, valid, kin, cin, cout, n in train_tables(cfg, batch, dev, gen):
+        taps = nbr.shape[1]
         hits = ((nbr < kin) & valid[:, None]).float().sum().item() / max(valid.sum().item(), 1)
         f0 = torch.randn(kin, cin, generator=gen).to(dev)
         w0 = (torch.randn(taps, cin, cout, generator=gen) / (taps * cin) ** 0.5).to(dev)
@@ -329,7 +398,8 @@ def check_k1_backward(cfg, batch, dev, gen):
             (out * dy).sum().backward()
             res.append((out.detach(), f.grad, w.grad))
         torch.cuda.synchronize()
-        msg = [f"K1 backward {name} K={kin}->{nbr.shape[0]} {cin}->{cout} {taps} taps hits/row={hits:.2f}:"]
+        shape = f"train {name}, K={kin}->{nbr.shape[0]} {cin}->{cout} {taps} taps, {hits:.2f} hits/row"
+        msg = [f"K1 backward {shape}:"]
         wt = w0.transpose(1, 2).contiguous()
         every = torch.ones(kin, dtype=torch.bool, device=dev)
         timed = {
@@ -343,15 +413,18 @@ def check_k1_backward(cfg, batch, dev, gen):
             assert rel <= K1_TOL, f"K1 {kind} {name}: max rel err {rel:.3e} > {K1_TOL}"
             recs[kind]["max_abs_err"] = max(recs[kind]["max_abs_err"], err)
             msg.append(f"{kind} max_abs_err={err:.3e} max_rel_err={rel:.3e}")
-        for kind, (kern, plain) in timed.items():
-            ms, plain_ms = device_time_ms(kern), device_time_ms(plain)
-            bd = k1_bound(kind, nbr, valid, kin, cin, cout)
-            msg.append(f"{kind} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bd['bound_ms']:.4f} "
-                       f"({bd['bound_by']})")
-            if name == "stage0":
-                recs[kind].update(ms=ms, plain_ms=plain_ms, shape=f"train stage 0, K={kin} {cin}->{cout} 27 taps",
-                                  **bd)
         log(" ".join(msg))
+        for kind, (kern, plain) in timed.items():
+            launches = 0 if kind == "dgrad" and name == "conv_input" else n * b
+            t = timing(kern, plain, k1_bound(kind, nbr, valid, kin, cin, cout), launches)
+            log(f"  {kind} {timing_text(t)}")
+            recs[kind]["shapes"].append(dict(t, shape=shape))
+            per_step[kind] += t["launch_ms"]
+    log(f"K1 per lidar_only train step (B={b}), sum of launches*ms: forward {per_step['fwd']:.4f} ms, "
+        f"d/dfeat {per_step['dgrad']:.4f} ms (forward + d/dfeat {per_step['fwd'] + per_step['dgrad']:.4f}), "
+        f"d/dW {per_step['wgrad']:.4f} ms")
+    for kind, r in recs.items():
+        r["ms_per_step"] = per_step[kind]
     return recs
 
 
@@ -371,11 +444,14 @@ def close_grads(got: dict, ref: dict, what: str) -> float:
     return worst
 
 
-def step_grads(step, batch, seed, targets=None, masks=None, replay=False):
+def step_grads(step, batch, seed, targets=None, masks=None, replay=False, orders=None, flips=None):
     """One forward + loss + backward of ``step`` (no update): metrics,
-    targets and {name: gradient}; ``masks``: see :func:`relu_masks`."""
+    targets and {name: gradient}; ``masks``: see :func:`relu_masks`;
+    ``orders``, ``flips``: see :func:`sort_orders`."""
     gen = torch.Generator(device=step.device).manual_seed(seed)
-    with relu_masks([] if masks is None else masks, replay):
+    with relu_masks([] if masks is None else masks, replay), contextlib.ExitStack() as stack:
+        if orders is not None:
+            stack.enter_context(sort_orders(orders, replay, flips))
         metrics, targets = step.backward(batch, gen, targets)
     grads = {n: p.grad.detach().clone() for n, p in step.model.named_parameters() if p.grad is not None}
     return metrics, targets, grads
@@ -418,7 +494,7 @@ def run_lidar(dev, gen):
     b = cfg.data.samples_per_device
     assert b == 2, b
     batch = to_torch(make_synthetic_batch(cfg, b=b, seed=0, with_gt=True), dev)
-    k1 = check_k1_backward(cfg, batch, dev, gen)
+    k1 = check_k1_backward(cfg, batch, dev, gen, b)
     check_tiny_lidar(dev)
 
     model = DeepInteraction(cfg.model, cfg.data.padded_img_shape).to(dev)
@@ -435,8 +511,7 @@ def run_lidar(dev, gen):
     step = TrainStep(cfg, model, 1000, device=dev)
     for c in (smc.subm_conv_gemm, smc.subm_conv_dgrad, smc.subm_conv_wgrad):
         c.launches = 0
-    masks = []
-    metrics, targets, grads = step_grads(step, batch, seed=1, masks=masks)
+    metrics, targets, grads = step_grads(step, batch, seed=1)
     torch.cuda.synchronize()
     launches = {"subm_conv_gemm": smc.subm_conv_gemm.launches, "subm_conv_dgrad": smc.subm_conv_dgrad.launches,
                 "subm_conv_wgrad": smc.subm_conv_wgrad.launches}
@@ -450,16 +525,22 @@ def run_lidar(dev, gen):
         + f"; {len(grads)} of {len(list(model.parameters()))} parameters have finite gradients")
 
     # K1 swapped for its plain versions, from the same weights, statistics,
-    # dropout masks, ReLU masks and matching
+    # dropout masks and matching; the kernels' run records its ReLU masks
+    # and sort orders (so its proposals) and the plain run replays them
+    masks, orders, flips = [], [], []
+    model.load_state_dict(start)
+    metrics, _, grads = step_grads(step, batch, seed=1, targets=targets, masks=masks, orders=orders)
     model.load_state_dict(start)
     with plain_kernels():
-        plain_metrics, _, plain_grads = step_grads(step, batch, seed=1, targets=targets, masks=masks, replay=True)
-    del masks
+        plain_metrics, _, plain_grads = step_grads(step, batch, seed=1, targets=targets, masks=masks, replay=True,
+                                                   orders=orders, flips=flips)
+    del masks, orders
     enc = [n for n in grads if n.startswith("pts_middle_encoder.")]
     worst = close_grads({n: grads[n] for n in enc}, {n: plain_grads[n] for n in enc}, "K1 vs plain")
     err, rel = rel_err(metrics["loss_total"], plain_metrics["loss_total"])
     log(f"lidar_only train step, K1 kernels vs plain: {len(enc)} sparse-encoder gradient leaves, worst "
-        f"{worst:.3e} of scale (tolerance {GRAD_TOL}); loss_total rel diff {rel:.3e}")
+        f"{worst:.3e} of scale (tolerance {GRAD_TOL}); loss_total rel diff {rel:.3e}; sort calls whose own "
+        f"order differed from the kernel run's: {sum(flips)} of {len(flips)}")
 
     model.load_state_dict(start)
     for _ in range(TRAIN_WARMUP):
@@ -502,7 +583,7 @@ def run_slice(dev, gen):
     torch.cuda.synchronize()
     launches = {"subm_conv_gemm": smc.subm_conv_gemm.launches, "local_attn_fwd": la.local_attn_fwd.launches}
     log(f"main path launches per frame: {launches}")
-    assert launches["subm_conv_gemm"] >= 17, launches
+    assert launches["subm_conv_gemm"] == 21, launches
     assert launches["local_attn_fwd"] == 6, launches
     kern = {k: captured[k] for k in captured}
 
@@ -574,28 +655,26 @@ def main() -> int:
     k1, train_launches = run_lidar(dev, gen)
 
     src = "deepinteraction_tpu_torch/csrc/subm_conv.cu"
-    train_path = "lidar_only train step, B=2"
+    eval_path, train_path = "fusion_base eval, B=1", "lidar_only train step, B=2"
+    fwd = dict(k1["fwd"], shapes=k1_eval["shapes"] + k1["fwd"]["shapes"], ms_per_frame=k1_eval["ms_per_frame"],
+               max_abs_err=max(k1_eval["max_abs_err"], k1["fwd"]["max_abs_err"]))
     kernels = [
         {"name": "subm_conv_gemm", "route": "cuda", "source": src,
-         "replaces": "deepinteraction_tpu/ops/sparse_conv_banded.py:98",
-         "launches": train_launches["subm_conv_gemm"], "path": train_path,
-         "launches_by_path": {"fusion_base eval, B=1": eval_launches["subm_conv_gemm"],
+         "replaces": "deepinteraction_tpu/ops/sparse_conv_banded.py:98", **headline(fwd, "eval stage3"),
+         "launches": eval_launches["subm_conv_gemm"], "path": eval_path,
+         "launches_by_path": {eval_path: eval_launches["subm_conv_gemm"],
                               train_path: train_launches["subm_conv_gemm"]},
-         **dict(k1["fwd"], max_abs_err=max(k1_eval["max_abs_err"], k1["fwd"]["max_abs_err"])),
          "library_ms": None},
         {"name": "subm_conv_dgrad", "route": "cuda", "source": src,
-         "replaces": "deepinteraction_tpu/ops/sparse_conv_banded.py:227",
-         "launches": train_launches["subm_conv_dgrad"], "path": train_path, **k1["dgrad"],
-         "library_ms": None},
+         "replaces": "deepinteraction_tpu/ops/sparse_conv_banded.py:227", **headline(k1["dgrad"], "train stage3"),
+         "launches": train_launches["subm_conv_dgrad"], "path": train_path, "library_ms": None},
         {"name": "subm_conv_wgrad", "route": "cuda", "source": src,
-         "replaces": "deepinteraction_tpu/ops/sparse_conv_banded.py:234",
-         "launches": train_launches["subm_conv_wgrad"], "path": train_path, **k1["wgrad"],
-         "library_ms": None},
+         "replaces": "deepinteraction_tpu/ops/sparse_conv_banded.py:234", **headline(k1["wgrad"], "train stage3"),
+         "launches": train_launches["subm_conv_wgrad"], "path": train_path, "library_ms": None},
         {"name": "local_attn_fwd", "route": "cuda",
          "source": "deepinteraction_tpu_torch/csrc/local_attention.cu",
-         "replaces": "deepinteraction_tpu/ops/local_attention_pallas.py:58",
-         "launches": eval_launches["local_attn_fwd"], "path": "fusion_base eval, B=1", **k2,
-         "library_ms": None},
+         "replaces": "deepinteraction_tpu/ops/local_attention_pallas.py:58", **headline(k2, "[6, 112, 200, 128]"),
+         "launches": eval_launches["local_attn_fwd"], "path": eval_path, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

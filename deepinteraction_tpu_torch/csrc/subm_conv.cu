@@ -9,125 +9,296 @@
 // The backward's input gradient is subm_conv_gemm itself, run over the
 // inverse table (inv[j, d] = i where nbr[i, d] = j) with w[d]^T.
 //
-// Replaces the Pallas kernel deepinteraction_tpu/ops/sparse_conv_banded.py::
-// _banded_kernel_call (one-hot MXU scatter into a VMEM window). That band plan
-// exists because row gathers are slow on a TPU; on Hopper a row gather is a
-// plain coalesced load, so this is TorchSparse's gather-matmul dataflow with
-// no band plan, no tap mirror and no overflow path.
+// subm_conv_gemm replaces the Pallas kernel deepinteraction_tpu/ops/
+// sparse_conv_banded.py::_banded_kernel_call (:98-161, pallas_call :152): a
+// one-hot MXU scatter into a VMEM window, planned by make_banded_plan because
+// row gathers are slow on a TPU. On Hopper a row gather is a plain load, so
+// this is TorchSparse's gather-matmul dataflow with no band plan, no tap
+// mirror and no overflow path.
 //
-// Bound on the H100: at the encoder's widths (Cin, Cout <= 128) each gathered
-// row is used for at most 128 multiply-adds, so the kernel is bound by the
-// gathered bytes (27 rows per output row), not by arithmetic. Design against
-// that: one block owns a tile of output rows for all 27 taps, so the output
-// tile is accumulated in registers and written once; the gather of each
-// 32-channel slab is coalesced (a warp reads one 128-byte row slab); a tap
-// whose rows all miss in the tile is skipped without touching memory.
-// Arithmetic is fp32 on CUDA cores (a simple first kernel; wgmma/TMA later).
+// Bound on the H100 at the encoder's 21 convs, counting each input byte
+// once and the useful products (2 Cin Cout per hit) at the TF32 tensor-core
+// rate of 495 TFLOP/s: the 16- and 32-channel convs (1-6 hits per row on
+// the synthetic cloud) are bound by bytes, of which the [Ko, taps] table is
+// the largest part (17.3 MB of 37 MB at eval stage 0, 0.011 ms); stage 3
+// (30 000 rows, 128 -> 128, 11.4 hits per row) by operations, 0.023 ms. The
+// fp32 CUDA-core kernel this replaced re-read one column of the table per
+// tap (4 useful bytes a 32-byte sector), gathered with scalar loads, never
+// overlapped a tap's gather with the previous tap's math, and multiplied at
+// the 67 TFLOP/s fp32 rate.
+//
+// Design:
+// - the block reads its [TM x taps] slab of the table once, contiguously
+//   and with 16-byte loads, into shared memory, and lists the taps with a
+//   hit in the tile (one warp vote per tap); a tap with none is skipped
+//   without touching feat or w, and a warp skips the products of a tap that
+//   misses all of its rows. Rows are sorted by site, so the rows of a tile
+//   hit nearly the same taps and the skipped work is small;
+// - the work is a sequence of stages (listed tap, KC-channel chunk of Cin);
+//   each stage gathers TM feat rows by 16-byte cp.async (a miss zero-fills)
+//   and copies the [KC x TN] slab of w[d], 2-3 stages in flight ahead of
+//   the math, one barrier per stage; the 32- and 64-wide convs take 32
+//   channels a stage, which halves their stages;
+// - the output tile is accumulated over all taps in registers on the tensor
+//   cores (mma.sync m16n8k8) in split TF32 (tf32_mma.cuh), at fp32 accuracy;
+//   valid is applied when the tile is written;
+// - Cin = 5 (conv_input) is zero-padded to the MMA depth of 8 in shared
+//   memory; an odd width or a misaligned pointer takes 4-byte copies;
+// - tiles are 64 rows by 16, 32 or 64 output columns (4 warps), or 128 rows
+//   by 128 columns (8 warps), the output width rounded up; at most 128
+//   registers a thread let 4 blocks of 4 warps or 2 of 8 share an SM, so
+//   stage 3's 235 blocks run in one wave on the 132 SMs, and a block copies
+//   w once for 128 rows.
+//
+// What bounds it instead (PERF.md): the three mma.sync products per fp32
+// product, which issue at about 320 TFLOP/s of TF32 on an H100 SXM
+// (kernel_ab.py --mma-peak), the fragment loads and splits around them, and
+// the gathers, which one barrier per stage keeps from overlapping the math
+// fully.
 //
 // The tap count is a runtime argument, so the same kernel runs the 27-tap
 // submanifold convs, the 27-tap strided downsample convs and the 3-tap
 // conv_out, given the matching neighbor table.
 
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 32;  // input channels staged per step
+// TM rows x TN output columns, WARPS_M x WARPS_N warps, KC input channels a
+// stage, STAGES stage buffers (STAGES - 1 in flight ahead of the math)
+template <int TM_, int TN_, int WARPS_M_, int WARPS_N_, int KC_, int STAGES_>
+struct Tile {
+  static constexpr int TM = TM_, TN = TN_, WARPS_M = WARPS_M_, WARPS_N = WARPS_N_;
+  static constexpr int KC = KC_, STAGES = STAGES_;
+  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+  static constexpr int MIN_BLOCKS = 512 / THREADS;  // at most 128 registers a thread
+  static constexpr int WM = TM / WARPS_M;  // rows per warp
+  static constexpr int WN = TN / WARPS_N;  // columns per warp
+  static constexpr int MT = WM / 16;
+  static constexpr int NT = WN / 8;
+  static constexpr int AP = KC + 4;        // conflict-free A fragment reads
+  static constexpr int BP = TN + 8;        // conflict-free B fragment reads
+  static constexpr int STAGE = TM * AP + KC * BP;  // floats
+  static_assert(MT * 16 == WM && NT * 8 == WN && WM <= 32, "warp tile");
+};
 
-template <int TM, int TN>
-__global__ void __launch_bounds__(kThreads)
+// floats before the first stage buffer: the table, the tap mask and the
+// tap walk, 16-byte aligned
+__host__ __device__ inline int head_floats(int tm, int taps) {
+  return (tm * taps + (taps + 31) / 32 + taps + 1 + 3) / 4 * 4;
+}
+
+enum : int { kFeatVec = 1, kWVec = 2, kNbrVec = 4 };
+
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
     subm_conv_gemm_kernel(const float* __restrict__ feat,
                           const int32_t* __restrict__ nbr,
                           const float* __restrict__ w,
                           const uint8_t* __restrict__ valid,
                           float* __restrict__ out, int kin, int ko, int taps,
-                          int cin, int cout) {
-  static_assert(TM * TN == kThreads * 16, "one 4x4 micro-tile per thread");
-  constexpr int TX = TN / 4;  // threads across output columns
-  constexpr int TY = TM / 4;  // threads across output rows
-  __shared__ int32_t rows[TM];
-  __shared__ float as[TM][kChunk + 1];
-  __shared__ float bs[kChunk][TN];
+                          int cin, int cout, int flags) {
+  constexpr int TM = T::TM, TN = T::TN, KC = T::KC, STAGES = T::STAGES, THREADS = T::THREADS;
+  extern __shared__ float4 smem4[];
+  int32_t* table = reinterpret_cast<int32_t*>(smem4);  // [TM][taps], -1 = miss
+  uint32_t* mask = reinterpret_cast<uint32_t*>(table + TM * taps);  // taps that hit the tile
+  // [taps + 1]: the taps that hit the tile, in order, then their count
+  int32_t* walk = reinterpret_cast<int32_t*>(mask + (taps + 31) / 32);
+  float* stages = reinterpret_cast<float*>(smem4) + head_floats(TM, taps);
 
   const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int wm = warp / T::WARPS_N;
+  const int wn = warp % T::WARPS_N;
   const int row0 = blockIdx.x * TM;
   const int col0 = blockIdx.y * TN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int d = 0; d < taps; ++d) {
-    int hit = 0;
-    for (int m = tid; m < TM; m += kThreads) {
-      const int r = row0 + m;
-      const int idx = r < ko ? nbr[(int64_t)r * taps + d] : -1;
-      const bool ok = idx >= 0 && idx < kin;
-      rows[m] = ok ? idx : -1;
-      hit |= ok;
-    }
-    // doubles as the barrier that publishes rows[]
-    if (!__syncthreads_or(hit)) continue;
-
-    for (int k0 = 0; k0 < cin; k0 += kChunk) {
-      for (int e = tid; e < TM * kChunk; e += kThreads) {
-        const int m = e / kChunk;
-        const int kk = e % kChunk;
-        const int src = rows[m];
-        as[m][kk] = (src >= 0 && k0 + kk < cin)
-                        ? feat[(int64_t)src * cin + k0 + kk]
-                        : 0.f;
+  // 1. the table slab, read once
+  {
+    const int n = max(0, min(TM, ko - row0)) * taps;
+    const int32_t* src = nbr + (int64_t)row0 * taps;
+    auto fix = [&](int v) { return v >= 0 && v < kin ? v : -1; };
+    int e0 = 0;
+    if (flags & kNbrVec) {  // row0 * taps is a multiple of 4
+      e0 = n / 4 * 4;
+      for (int e = tid; e < n / 4; e += THREADS) {
+        const int4 v = reinterpret_cast<const int4*>(src)[e];
+        table[4 * e] = fix(v.x);
+        table[4 * e + 1] = fix(v.y);
+        table[4 * e + 2] = fix(v.z);
+        table[4 * e + 3] = fix(v.w);
       }
-      for (int e = tid; e < kChunk * TN; e += kThreads) {
+    }
+    for (int e = e0 + tid; e < TM * taps; e += THREADS) table[e] = e < n ? fix(src[e]) : -1;
+    for (int e = tid; e < (taps + 31) / 32; e += THREADS) mask[e] = 0u;
+  }
+  __syncthreads();
+  for (int d = warp; d < taps; d += THREADS / 32) {
+    bool hit = false;
+    for (int m = lane; m < TM; m += 32) hit |= table[m * taps + d] >= 0;
+    if (__any_sync(0xffffffffu, hit) && lane == 0) atomicOr(&mask[d / 32], 1u << (d % 32));
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0;
+    for (int d = 0; d < taps; ++d)
+      if ((mask[d / 32] >> (d % 32)) & 1u) walk[n++] = d;
+    walk[taps] = n;
+  }
+  __syncthreads();
+
+  // 2. stages s = (hit tap s / nk, chunk s % nk): the loader runs STAGES - 1 ahead
+  const int nk = (cin + KC - 1) / KC;
+  const int nstage = walk[taps] * nk;
+  auto load = [&](int s) {
+    const int d = walk[s / nk];
+    const int k0 = (s % nk) * KC;
+    float* as = stages + (s % STAGES) * T::STAGE;
+    float* bs = as + TM * T::AP;
+    if (flags & kFeatVec) {
+      constexpr int PER = KC / 4;
+      for (int e = tid; e < TM * PER; e += THREADS) {
+        const int m = e / PER;
+        const int cc = (e % PER) * 4;
+        const int src = table[m * taps + d];
+        const bool ok = src >= 0 && k0 + cc < cin;
+        di::cp_async16(as + m * T::AP + cc, ok ? feat + (int64_t)src * cin + k0 + cc : feat, ok);
+      }
+    } else {
+      for (int e = tid; e < TM * KC; e += THREADS) {
+        const int m = e / KC;
+        const int cc = e % KC;
+        const int src = table[m * taps + d];
+        const bool ok = src >= 0 && k0 + cc < cin;
+        di::cp_async4(as + m * T::AP + cc, ok ? feat + (int64_t)src * cin + k0 + cc : feat, ok);
+      }
+    }
+    const float* wd = w + (int64_t)d * cin * cout;
+    if (flags & kWVec) {
+      constexpr int PER = TN / 4;
+      for (int e = tid; e < KC * PER; e += THREADS) {
+        const int kk = e / PER;
+        const int nn = (e % PER) * 4;
+        const bool ok = k0 + kk < cin && col0 + nn < cout;
+        di::cp_async16(bs + kk * T::BP + nn, ok ? wd + (int64_t)(k0 + kk) * cout + col0 + nn : w, ok);
+      }
+    } else {
+      for (int e = tid; e < KC * TN; e += THREADS) {
         const int kk = e / TN;
-        const int n = e % TN;
-        bs[kk][n] = (k0 + kk < cin && col0 + n < cout)
-                        ? w[((int64_t)d * cin + k0 + kk) * cout + col0 + n]
-                        : 0.f;
+        const int nn = e % TN;
+        const bool ok = k0 + kk < cin && col0 + nn < cout;
+        di::cp_async4(bs + kk * T::BP + nn, ok ? wd + (int64_t)(k0 + kk) * cout + col0 + nn : w, ok);
       }
-      __syncthreads();
-      const int kmax = min(kChunk, cin - k0);
-      for (int kk = 0; kk < kmax; ++kk) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = as[ty + i * TY][kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = bs[kk][tx + j * TX];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
     }
-  }
+  };
 
+  float acc[T::MT][T::NT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + i * TY;
-    if (r >= ko) continue;
-    const bool keep = valid[r] != 0;
+  for (int i = 0; i < T::MT; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx + j * TX;
-      if (c < cout) out[(int64_t)r * cout + c] = keep ? acc[i][j] : 0.f;
+    for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nstage) load(s);
+    di::cp_async_commit();
+  }
+  for (int s = 0; s < nstage; ++s) {
+    di::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage s landed; the previous stage's buffer is free
+    if (s + STAGES - 1 < nstage) load(s + STAGES - 1);
+    di::cp_async_commit();
+
+    const int d = walk[s / nk];
+    bool mine = false;  // does tap d hit any row of this warp?
+    for (int m = lane; m < T::WM; m += 32) mine |= table[(wm * T::WM + m) * taps + d] >= 0;
+    if (__any_sync(0xffffffffu, mine)) {
+      const float* as = stages + (s % STAGES) * T::STAGE + wm * T::WM * T::AP;
+      const float* bs = stages + (s % STAGES) * T::STAGE + TM * T::AP + wn * T::WN;
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 8) {
+        uint32_t ah[T::MT][4], al[T::MT][4];
+#pragma unroll
+        for (int i = 0; i < T::MT; ++i) {
+          const float* a = as + (i * 16 + g) * T::AP + kk + t;
+          di::split_tf32(a[0], ah[i][0], al[i][0]);
+          di::split_tf32(a[8 * T::AP], ah[i][1], al[i][1]);
+          di::split_tf32(a[4], ah[i][2], al[i][2]);
+          di::split_tf32(a[8 * T::AP + 4], ah[i][3], al[i][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < T::NT; ++j) {
+          const float* b = bs + (kk + t) * T::BP + j * 8 + g;
+          uint32_t bh[2], bl[2];
+          di::split_tf32(b[0], bh[0], bl[0]);
+          di::split_tf32(b[4 * T::BP], bh[1], bl[1]);
+#pragma unroll
+          for (int i = 0; i < T::MT; ++i) di::mma_split(acc[i][j], ah[i], al[i], bh, bl);
+        }
+      }
     }
   }
+  di::cp_async_wait<0>();
+
+  // 3. epilogue: rows g, g+8 and columns 2t, 2t+1 of each 16 x 8 tile
+#pragma unroll
+  for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = row0 + wm * T::WM + i * 16 + g + 8 * half;
+      if (r >= ko) continue;
+      const bool keep = valid[r] != 0;
+#pragma unroll
+      for (int j = 0; j < T::NT; ++j) {
+        const int c = col0 + wn * T::WN + j * 8 + 2 * t;
+        const float v0 = keep ? acc[i][j][2 * half] : 0.f;
+        const float v1 = keep ? acc[i][j][2 * half + 1] : 0.f;
+        float* o = out + (int64_t)r * cout + c;
+        if (c + 1 < cout && (cout % 2) == 0) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          if (c < cout) o[0] = v0;
+          if (c + 1 < cout) o[1] = v1;
+        }
+      }
+    }
 }
 
-template <int TM, int TN>
-void launch(const float* feat, const int32_t* nbr, const float* w,
-            const uint8_t* valid, float* out, int kin, int ko, int taps,
-            int cin, int cout, cudaStream_t stream) {
+template <int TM, int TN, int WARPS_M, int WARPS_N, int KC, int STAGES>
+int launch(const float* feat, const int32_t* nbr, const float* w, const uint8_t* valid,
+           float* out, int kin, int ko, int taps, int cin, int cout, int flags,
+           cudaStream_t stream) {
+  using T = Tile<TM, TN, WARPS_M, WARPS_N, KC, STAGES>;
+  auto kernel = subm_conv_gemm_kernel<T>;
+  const int smem = (head_floats(TM, taps) + STAGES * T::STAGE) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((ko + TM - 1) / TM, (cout + TN - 1) / TN);
-  subm_conv_gemm_kernel<TM, TN><<<grid, kThreads, 0, stream>>>(
-      feat, nbr, w, valid, out, kin, ko, taps, cin, cout);
+  kernel<<<grid, T::THREADS, smem, stream>>>(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, flags);
+  return static_cast<int>(cudaGetLastError());
 }
+
+template <int KC>
+int launch_kc(const float* feat, const int32_t* nbr, const float* w, const uint8_t* valid,
+              float* out, int kin, int ko, int taps, int cin, int cout, int flags,
+              cudaStream_t stream) {
+  if (cout <= 16) return launch<64, 16, 4, 1, KC, 4>(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, flags, stream);
+  if (cout <= 32) return launch<64, 32, 4, 1, KC, 4>(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, flags, stream);
+  // 32-channel stages of the 128-wide tile would leave room for only 2
+  // blocks an SM: the caller takes KC = 32 only up to 64 output columns
+  if constexpr (KC <= 16) {
+    if (cout > 64) return launch<128, 128, 4, 2, KC, 3>(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, flags, stream);
+  }
+  return launch<64, 64, 2, 2, KC, 3>(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, flags, stream);
+}
+
+constexpr int kWgThreads = 256;
 
 // subm_conv_wgrad replaces d/dW of the JAX backward,
 // deepinteraction_tpu/ops/sparse_conv_banded.py::_banded_bwd (a tap loop of
@@ -148,14 +319,14 @@ void launch(const float* feat, const int32_t* nbr, const float* w,
 constexpr int kWgRows = 64;
 
 template <int BI, int BJ>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWgThreads)
     subm_conv_wgrad_kernel(const float* __restrict__ feat,
                            const int32_t* __restrict__ nbr,
                            const float* __restrict__ dy,
                            float* __restrict__ partial, int kin, int ko,
                            int taps, int cin, int cout, int tiles_per_block) {
   constexpr int TJ = 16;  // threads across dw columns (cout)
-  constexpr int TI = kThreads / TJ;  // threads across dw rows (cin)
+  constexpr int TI = kWgThreads / TJ;  // threads across dw rows (cin)
   constexpr int RI = BI / TI;
   constexpr int RJ = BJ / TJ;
   static_assert(RI * TI == BI && RJ * TJ == BJ, "tile must cover the threads");
@@ -182,7 +353,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = chunk * tiles_per_block; t < t_end; ++t) {
     const int row0 = t * kWgRows;
     int hit = 0;
-    for (int m = tid; m < kWgRows; m += kThreads) {
+    for (int m = tid; m < kWgRows; m += kWgThreads) {
       const int r = row0 + m;
       const int idx = r < ko ? nbr[(int64_t)r * taps + d] : -1;
       const bool ok = idx >= 0 && idx < kin;
@@ -192,13 +363,13 @@ __global__ void __launch_bounds__(kThreads)
     // doubles as the barrier that publishes src[]
     if (!__syncthreads_or(hit)) continue;
 
-    for (int e = tid; e < kWgRows * BI; e += kThreads) {
+    for (int e = tid; e < kWgRows * BI; e += kWgThreads) {
       const int m = e / BI;
       const int ii = e % BI;
       const int s = src[m];
       as[m][ii] = (s >= 0 && i0 + ii < cin) ? feat[(int64_t)s * cin + i0 + ii] : 0.f;
     }
-    for (int e = tid; e < kWgRows * BJ; e += kThreads) {
+    for (int e = tid; e < kWgRows * BJ; e += kWgThreads) {
       const int m = e / BJ;
       const int jj = e % BJ;
       bs[m][jj] = (src[m] >= 0 && j0 + jj < cout)
@@ -252,7 +423,7 @@ void launch_wgrad(const float* feat, const int32_t* nbr, const float* dy,
   const int per_block = (n_tiles + chunks - 1) / chunks;
   const int out_tiles = ((cin + BI - 1) / BI) * ((cout + BJ - 1) / BJ);
   dim3 grid(chunks, taps, out_tiles);
-  subm_conv_wgrad_kernel<BI, BJ><<<grid, kThreads, 0, stream>>>(
+  subm_conv_wgrad_kernel<BI, BJ><<<grid, kWgThreads, 0, stream>>>(
       feat, nbr, dy, partial, kin, ko, taps, cin, cout, per_block);
 }
 
@@ -263,21 +434,19 @@ extern "C" int di_subm_conv_gemm(const void* feat, const void* nbr,
                                  int kin, int ko, int taps, int cin, int cout,
                                  void* stream) {
   if (ko <= 0 || cout <= 0) return 0;
+  if (cin <= 0) taps = 0;  // nothing to sum: the output is zero
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const int flags = (cin % 4 == 0 && aligned(feat) ? kFeatVec : 0) |
+                    (cout % 4 == 0 && aligned(w) ? kWVec : 0) | (aligned(nbr) ? kNbrVec : 0);
   const float* f = static_cast<const float*>(feat);
   const int32_t* n = static_cast<const int32_t*>(nbr);
   const float* wt = static_cast<const float*>(w);
   const uint8_t* v = static_cast<const uint8_t*>(valid);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // tile shapes keep 256 threads busy at every output width of the encoder
-  if (cout <= 16) {
-    launch<256, 16>(f, n, wt, v, o, kin, ko, taps, cin, cout, s);
-  } else if (cout <= 32) {
-    launch<128, 32>(f, n, wt, v, o, kin, ko, taps, cin, cout, s);
-  } else {
-    launch<64, 64>(f, n, wt, v, o, kin, ko, taps, cin, cout, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (cin <= 8) return launch_kc<8>(f, n, wt, v, o, kin, ko, taps, cin, cout, flags, s);
+  if (cin <= 16 || cout > 64) return launch_kc<16>(f, n, wt, v, o, kin, ko, taps, cin, cout, flags, s);
+  return launch_kc<32>(f, n, wt, v, o, kin, ko, taps, cin, cout, flags, s);
 }
 
 extern "C" int di_subm_conv_wgrad(const void* feat, const void* nbr,

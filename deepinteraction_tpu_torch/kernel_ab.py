@@ -1,0 +1,188 @@
+"""Time the port's kernels against another build of their C interface, in turns.
+
+A kernel redesign is judged on one card in one process: two calls can land
+on cards with other power limits. This builds the tree's kernels
+(``ops/cuda_lib.py``) and every ``*.cu`` in another directory (an earlier
+commit's ``csrc``, or a variant of it) with the same nvcc flags, then, at the
+main-path shapes:
+
+- K2 ``local_attn_fwd`` at [6,112,200,128] and [1,180,180,128], k = 9;
+- K1 ``subm_conv_gemm`` at the nine conv shapes of one ``fusion_base`` eval
+  frame, and as d/dfeat over the ``lidar_only`` train tables
+  (``chip_smoke.encoder_tables`` and ``chip_smoke.train_tables``);
+
+checks both builds against the plain versions at the tolerances of
+``chip_smoke.py`` and times them in the order other, tree, tree, other
+(CUDA-event medians of ``chip_smoke.device_time_ms``). ``--mma-peak`` first
+times ``mma.sync`` m16n8k8 TF32 alone, on registers, across the card: the
+ceiling of the split-TF32 products. Run from the root of a checkout::
+
+    mkdir -p work_dirs/old_csrc
+    for f in subm_conv.cu local_attention.cu; do
+        git show a8e467e:deepinteraction_tpu_torch/csrc/$f > work_dirs/old_csrc/$f
+    done
+    python -m deepinteraction_tpu_torch.kernel_ab work_dirs/old_csrc --mma-peak
+
+Fails without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import glob
+import math
+import os
+import subprocess
+import tempfile
+
+import torch
+
+import chip_smoke as cs
+
+from .configs import fusion_base_config, lidar_only_config
+from .ops import cuda_lib
+from .ops import local_attention as la
+from .ops import subm_conv as smc
+from .utils.synthetic import make_synthetic_batch, to_torch
+
+_MMA_PEAK = r"""
+#include "tf32_mma.cuh"
+__global__ void mma_peak_kernel(float* out, int iters) {
+  float d[8][4] = {};
+  uint32_t a[4], b[2];
+  for (int i = 0; i < 4; ++i) a[i] = di::tf32_rna(threadIdx.x * 1e-3f + i);
+  for (int i = 0; i < 2; ++i) b[i] = di::tf32_rna(threadIdx.x * 2e-3f + i);
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) di::mma_tf32(d[j], a, b);
+  float s = 0.f;
+  for (int j = 0; j < 8; ++j) s += d[j][0] + d[j][1] + d[j][2] + d[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int mma_peak(void* out, int blocks, int iters, void* stream) {
+  mma_peak_kernel<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<float*>(out), iters);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def build_other(src_dir: str, out_dir: str) -> ctypes.CDLL:
+    """Every ``*.cu`` of ``src_dir`` (headers from there, then the tree's
+    ``csrc``) into one library bound like the tree's."""
+    nvcc = cuda_lib._nvcc()
+    sources = sorted(glob.glob(os.path.join(src_dir, "*.cu")))
+    objs = [os.path.join(out_dir, os.path.basename(s) + ".o") for s in sources]
+    inc = ["-I", src_dir, "-I", cuda_lib.CSRC_DIR]
+    cuda_lib._run([subprocess.Popen([nvcc, *cuda_lib.NVCC_FLAGS, *inc, "-c", "-o", o, s],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                   for s, o in zip(sources, objs)])
+    so = os.path.join(out_dir, "libother.so")
+    cuda_lib._run([subprocess.Popen([nvcc, *cuda_lib.NVCC_FLAGS, "-shared", "-o", so, *objs],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)])
+    lib = ctypes.CDLL(so)
+    for name, (argtypes, restype) in cuda_lib._SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
+    return lib
+
+
+def mma_peak(out_dir: str) -> None:
+    """TFLOP/s of mma.sync m16n8k8 TF32 with 8 independent accumulators a
+    warp, 4 and 8 blocks of 4 warps an SM."""
+    src = os.path.join(out_dir, "mma_peak.cu")
+    with open(src, "w") as f:
+        f.write(_MMA_PEAK)
+    so = os.path.join(out_dir, "libmma_peak.so")
+    cuda_lib._run([subprocess.Popen([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-I", cuda_lib.CSRC_DIR, "-shared",
+                                     "-o", so, src], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)])
+    lib = ctypes.CDLL(so)
+    lib.mma_peak.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 4096
+    for per_sm in (4, 8):
+        blocks = per_sm * sms
+        out = torch.empty(blocks * 128, device="cuda")
+        ms = cs.device_time_ms(lambda: lib.mma_peak(out.data_ptr(), blocks, iters, cuda_lib.stream_ptr(out.device)))
+        flops = blocks * 4 * iters * 8 * 2 * 16 * 8 * 8
+        print(f"mma.sync m16n8k8 tf32, {per_sm} blocks of 4 warps an SM: {ms:.4f} ms, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+
+
+def gemm(lib, feat, nbr, w, valid):
+    ko, taps = nbr.shape
+    out = torch.empty(ko, w.shape[-1], device=feat.device)
+    cuda_lib.check(lib.di_subm_conv_gemm(feat.data_ptr(), nbr.data_ptr(), w.data_ptr(), valid.data_ptr(),
+                                         out.data_ptr(), feat.shape[0], ko, taps, feat.shape[1], w.shape[-1],
+                                         cuda_lib.stream_ptr(feat.device)), "subm_conv_gemm")
+    return out
+
+
+def attn(lib, q, k, v, kernel):
+    b, h, w, c = q.shape
+    out = torch.empty_like(q)
+    cuda_lib.check(lib.di_local_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, w, c,
+                                         kernel, 1.0 / math.sqrt(c), cuda_lib.stream_ptr(q.device)),
+                   "local_attn_fwd")
+    return out
+
+
+def in_turns(label: str, run, libs: dict, ref, tol) -> None:
+    """Both builds against the plain result, then timed other, tree, tree, other."""
+    for name, lib in libs.items():
+        got = run(lib)
+        err = (got - ref).abs().max().item()
+        assert tol(got, ref), f"{label}: {name} build max abs err {err:.3e} out of tolerance"
+    t = {name: [] for name in libs}
+    for name in ("other", "tree", "tree", "other"):
+        t[name].append(cs.device_time_ms(lambda: run(libs[name])))
+    other, tree = (sum(t[n]) / 2 for n in ("other", "tree"))
+    print(f"{label}: other_ms={t['other'][0]:.4f},{t['other'][1]:.4f} tree_ms={t['tree'][0]:.4f},{t['tree'][1]:.4f} "
+          f"tree/other={tree / other:.3f}", flush=True)
+
+
+def main() -> None:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("other", help="directory of .cu sources with the same C interface")
+    p.add_argument("--mma-peak", action="store_true", help="time mma.sync TF32 alone first")
+    args = p.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: no CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR) as tmp:
+        if args.mma_peak:
+            mma_peak(tmp)
+        libs = {"other": build_other(args.other, tmp), "tree": cuda_lib.library()}
+        dev = torch.device("cuda", 0)
+        gen = torch.Generator().manual_seed(0)
+        k1_tol = lambda got, ref: (got - ref).abs().max().item() <= cs.K1_TOL * ref.abs().max().item()
+        k2_tol = lambda got, ref: torch.allclose(got, ref, atol=cs.K2_TOL, rtol=cs.K2_TOL)
+        for shape in ((6, 112, 200, 128), (1, 180, 180, 128)):
+            q, k, v = (torch.randn(shape, generator=gen).to(dev) for _ in range(3))
+            in_turns(f"K2 local_attn_fwd {list(shape)} k=9", lambda lib: attn(lib, q, k, v, 9), libs,
+                     la.local_attention(q, k, v, 9), k2_tol)
+        cfg = fusion_base_config()
+        batch = to_torch(make_synthetic_batch(cfg, b=1, seed=0), dev)
+        for name, nbr, _, valid, kin, cin, cout, n in cs.encoder_tables(
+                cfg, batch, dev, cfg.model.pts_voxel_layer.max_voxels[1], False):
+            f = torch.randn(kin, cin, generator=gen).to(dev)
+            w = (torch.randn(nbr.shape[1], cin, cout, generator=gen) / (nbr.shape[1] * cin) ** 0.5).to(dev)
+            in_turns(f"K1 fwd eval {name} {cin}->{cout} x{n}", lambda lib: gemm(lib, f, nbr, w, valid), libs,
+                     smc.gathered_matmul(f, nbr, w, valid), k1_tol)
+        lcfg = lidar_only_config()
+        lbatch = to_torch(make_synthetic_batch(lcfg, b=2, seed=0, with_gt=True), dev)
+        for name, nbr, inv, valid, kin, cin, cout, n in cs.train_tables(lcfg, lbatch, dev, gen):
+            dy = torch.where(valid[:, None], torch.randn(nbr.shape[0], cout, generator=gen).to(dev), 0.0)
+            wt = (torch.randn(nbr.shape[1], cout, cin, generator=gen) / (nbr.shape[1] * cout) ** 0.5).to(dev)
+            every = torch.ones(kin, dtype=torch.bool, device=dev)
+            in_turns(f"K1 dgrad train {name} {cout}->{cin} x{n}", lambda lib: gemm(lib, dy, inv, wt, every), libs,
+                     smc.gathered_matmul(dy, inv, wt, every), k1_tol)
+
+
+if __name__ == "__main__":
+    main()

@@ -14,9 +14,11 @@ CUDA extension does.
 The kernel replaces the Pallas kernel
 ``deepinteraction_tpu/ops/local_attention_pallas.py::_kernel``; its source
 note says what bounds it on the H100 and what its design does about it. It
-computes in fp32, so it agrees with the plain version to fp32 rounding
-(tolerance 2e-5 absolute and relative). The backward is not ported yet
-(ROADMAP queue 2, K2 backward).
+multiplies on the tensor cores in split TF32 (three TF32 products per fp32
+product), which keeps fp32 accuracy, so it agrees with the plain version to
+fp32 rounding (tolerance 2e-5 absolute and relative). It takes odd kernel
+sizes up to ``MAX_KERNEL`` (the model uses 5 and 9). The backward is not
+ported yet (ROADMAP queue 2, K2 backward).
 """
 
 from __future__ import annotations
@@ -27,6 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
+
+# largest window the kernel takes: its k*k logits live in registers
+MAX_KERNEL = 9
 
 
 def local_similar(query: torch.Tensor, key: torch.Tensor, kernel: int) -> torch.Tensor:
@@ -104,8 +109,8 @@ def local_attn_fwd(
         )
     if any(t.dtype != torch.float32 for t in (q, k, v)):
         raise TypeError("local_attn_fwd: want float32 q, k, v")
-    if kernel % 2 != 1 or kernel < 1:
-        raise ValueError(f"local_attn_fwd: kernel must be odd, got {kernel}")
+    if kernel % 2 != 1 or not 1 <= kernel <= MAX_KERNEL:
+        raise ValueError(f"local_attn_fwd: kernel must be odd and at most {MAX_KERNEL}, got {kernel}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     cuda_lib.require_cuda("local_attn_fwd", q, k, v)
     return _LocalAttnFwd.apply(q, k, v, kernel)

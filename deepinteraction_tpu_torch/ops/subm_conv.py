@@ -23,9 +23,12 @@ there is no fallback.
 The kernels replace the Pallas kernel ``deepinteraction_tpu/ops/
 sparse_conv_banded.py::_banded_kernel_call`` (forward and d/dfeat) and the
 d/dW of ``_banded_bwd``; the source notes say what bounds them on the H100
-and what their designs do about it. They multiply in fp32, so they agree with
-the plain versions to fp32 summation-order error (tolerance 1e-4 relative to
-the output's scale). Each wrapper counts its launches in ``.launches``.
+and what their designs do about it. The forward kernel (and so d/dfeat)
+multiplies on the tensor cores in split TF32 (three TF32 products per fp32
+product) and d/dW in fp32 on CUDA cores; both keep fp32 accuracy, so they
+agree with the plain versions to fp32 summation-order error (tolerance 1e-4
+relative to the output's scale). Each wrapper counts its launches in
+``.launches``.
 """
 
 from __future__ import annotations

@@ -22,10 +22,11 @@ from deepinteraction_tpu_torch.utils.synthetic import init_weights, make_synthet
 
 pytestmark = pytest.mark.gpu
 
-# K1 multiplies in fp32: only the summation order differs from the plain
-# version, so the max error is held to 1e-4 of the output's scale
+# K1 keeps fp32 accuracy (split TF32 on the tensor cores; d/dW in fp32): only
+# the summation order differs from the plain version, so the max error is
+# held to 1e-4 of the output's scale
 K1_TOL = 1e-4
-# K2 computes in fp32 throughout
+# K2 keeps fp32 accuracy throughout (split TF32 products, fp32 softmax)
 K2_TOL = 2e-5
 
 
@@ -58,6 +59,9 @@ def _sparse_case(rng, k, cin, cout, taps, miss=0.7):
         (30_000, 128, 128, 27),  # stage 3
         (30_000, 128, 128, 3),  # conv_out's 3-tap table
         (1_000, 40, 72, 27),  # ragged widths
+        (2_999, 72, 40, 27),  # ragged widths, rows not a multiple of any tile
+        (1_003, 5, 16, 27),  # Cin=5 padded to the MMA depth, ragged rows
+        (4_097, 16, 5, 27),  # Cout=5: conv_input's d/dfeat shape
     ],
 )
 def test_subm_conv_gemm_matches_plain(cuda, k, cin, cout, taps):
@@ -73,13 +77,65 @@ def test_subm_conv_gemm_matches_plain(cuda, k, cin, cout, taps):
     assert torch.all(out[~args[3]] == 0)
 
 
+@pytest.mark.parametrize("table", ["tiles_miss", "taps_miss", "dense"])
+@pytest.mark.parametrize("cin,cout", [(16, 16), (128, 128)])
+def test_subm_conv_gemm_skips_and_dense(cuda, table, cin, cout):
+    """Tables where whole row tiles or whole taps miss (the kernel skips
+    them) and a dense table where every tap of every row hits."""
+    rng = np.random.default_rng(cin + len(table))
+    k, taps = 5_000, 27
+    feats, nbr, w, valid = _sparse_case(rng, k, cin, cout, taps, miss=0.0 if table == "dense" else 0.5)
+    if table == "tiles_miss":
+        nbr[64:1_000] = k  # rows 64..999: whole 64-row tiles miss every tap
+        nbr[3_000:3_070] = -1  # negative indices miss too
+    elif table == "taps_miss":
+        nbr[:, ::2] = k  # every even tap misses everywhere
+    else:
+        valid[:] = True
+    args = [torch.from_numpy(a).to(cuda) for a in (feats, nbr, w, valid)]
+    out = smc.subm_conv_gemm(*args)
+    ref = smc.gathered_matmul(*args)
+    err = (out - ref).abs().max().item()
+    assert err <= K1_TOL * ref.abs().max().item(), err
+    if table == "tiles_miss":
+        assert torch.all(out[64:1_000] == 0)
+
+
+@pytest.mark.parametrize("kernel", [3, 5, 7, 9])
+@pytest.mark.parametrize("c", [40, 64, 128])
+def test_local_attn_fwd_ragged_tiles(cuda, kernel, c):
+    """H and W not multiples of the 4 x 16 query tile, every window size the
+    kernel takes, channel counts that are and are not multiples of its
+    16-channel slab."""
+    g = torch.Generator(device="cpu").manual_seed(kernel * c)
+    q, k, v = (torch.randn((2, 13, 21, c), generator=g).to(cuda) for _ in range(3))
+    torch.testing.assert_close(la.local_attn_fwd(q, k, v, kernel), la.local_attention(q, k, v, kernel),
+                               atol=K2_TOL, rtol=K2_TOL)
+
+
+@pytest.mark.parametrize("c", [40, 128])
+def test_local_attn_fwd_sharp_softmax(cuda, c):
+    """q and k scaled x8: the scaled logits spread over hundreds, so a wrong
+    running max overflows exp, and the softmax is sharp. Their entries are
+    +-8, so every logit is exact in both versions: with normal entries at
+    this gain two fp32 summation orders already differ by more than 2e-5
+    (tests/test_torch_port_split_tf32.py). The split of q.k is held by the
+    other cases, where one TF32 pass would miss 2e-5."""
+    g = torch.Generator(device="cpu").manual_seed(c)
+    q, k, v = (torch.randn((1, 37, 45, c), generator=g).to(cuda) for _ in range(3))
+    q, k = 8 * torch.sign(q), 8 * torch.sign(k)
+    torch.testing.assert_close(la.local_attn_fwd(q, k, v, 9), la.local_attention(q, k, v, 9),
+                               atol=K2_TOL, rtol=K2_TOL)
+
+
 @pytest.mark.parametrize(
     "shape,kernel",
     [
         ((6, 112, 200, 128), 9),  # p2i_local / i_iml image maps
         ((1, 180, 180, 128), 9),  # p_iml BEV map
         ((2, 13, 21, 64), 5),
-        ((1, 7, 9, 40), 3),  # channels not a multiple of the 32-wide slab
+        ((1, 7, 9, 40), 3),  # channels not a multiple of the 16-wide slab
+        ((1, 9, 11, 6), 3),  # channels not a multiple of 4: 4-byte copies
     ],
 )
 def test_local_attn_fwd_matches_plain(cuda, shape, kernel):
@@ -105,6 +161,8 @@ def test_wrappers_reject_bad_inputs(cuda):
     q = torch.zeros(1, 4, 4, 8, device=cuda)
     with pytest.raises(ValueError):
         la.local_attn_fwd(q, q, q, 4)
+    with pytest.raises(ValueError):
+        la.local_attn_fwd(q, q, q, la.MAX_KERNEL + 2)
 
 
 def test_backward_not_ported(cuda):
@@ -140,6 +198,7 @@ def _sites(k, grid, dev, seed):
         (60_000, 64, 128, "down"),
         (30_000, 128, 128, "subm"),  # stage 3
         (30_000, 128, 128, "conv_out"),  # 3 taps
+        (7_001, 32, 64, "down"),  # ragged rows through a strided inverse table
     ],
 )
 def test_subm_conv_backward_matches_plain(cuda, k, cin, cout, table):
