@@ -44,10 +44,29 @@ kernels (d/dfeat: K1 over the inverse table; d/dW: ``subm_conv_wgrad``):
     versions on the same matching, ReLU masks and proposal order; then
     ms/step (2 warm-ups, 5 timed) and peak memory.
 
+The third slice is the ``fusion_base`` train step (the paper's fusion
+fine-tune: image and LiDAR branches frozen, the MMRI encoder and the MMPI
+blocks trained), through K1's forward and K2's forward and backward:
+
+11. K2's backward (``local_attn_bwd``) against autograd of the plain
+    version at [12,112,200,128] (4 launches a step) and [2,180,180,128]
+    (2), k=9, each of dq, dk, dv within 1e-4 of its scale; times as in
+    phase 5;
+12. one ``tiny_config`` train step on the card against the port's CPU path
+    (which tests/test_torch_port_fusion_train.py holds to JAX), as phase 9,
+    the card replaying the CPU run's ReLU masks and sort orders for the
+    gradients, at the fusion tolerances (FUSION_*);
+13. full width, B=2: one train step with the launch counters set to 0 just
+    before and read just after; every trainable gradient leaf against a
+    step with K2's forward and backward swapped for the plain version on
+    the same matching, ReLU masks, sort orders and dropout seed; then
+    ms/step (2 warm-ups, 5 timed) and peak memory.
+
 A bound is the larger of the bytes (each input read once, each output
 written once) over 3.35 TB/s and the useful operations over the peak rate
 of the units the kernel multiplies on: TF32 tensor cores for K1's forward,
-d/dfeat and K2 (split TF32), fp32 CUDA cores for d/dW. The line before the
+d/dfeat and K2's forward (split TF32), fp32 CUDA cores for d/dW and K2's
+backward. The line before the
 last is the kernels' JSON record, each kernel with its numbers at one
 main-path shape and at every shape it was timed at; the last line is
 ``{"ok": true, "device": {...}}``. Usage: ``python3 chip_smoke.py``.
@@ -82,12 +101,35 @@ from deepinteraction_tpu_torch.utils.synthetic import init_weights, make_synthet
 # tensor cores, fp32 on CUDA cores for d/dW); only the summation order differs
 K1_TOL = 1e-4  # max|kernel - plain| / max|plain|
 K2_TOL = 2e-5  # absolute and relative, as torch.testing.assert_close
+K2_BWD_TOL = 1e-4  # max|kernel - plain| / max|plain| for each of dq, dk, dv
 SLICE_TOL = 1e-3  # max|d| / max|plain| for the BEV map and MMRI outputs
 TINY_RTOL, TINY_ATOL = 2e-3, 5e-4  # the golden fixtures' tolerance
 # the train step's tolerance in tests/test_torch_port_train.py: losses and
 # grad norm rtol 1e-3, each gradient leaf 1e-3 of its scale (a leaf whose
 # gradient is 0 in exact arithmetic holds noise below 1e-8 of the largest)
 TRAIN_RTOL, GRAD_TOL, GRAD_NOISE = 1e-3, 1e-3, 1e-8
+# the fusion model has ~30 leaves whose gradient is 0 in exact arithmetic
+# (biases a softmax or a train-mode BN cancels); their fp32 noise reaches
+# 8.7e-9 of the largest leaf at tiny_config (fp32 against fp64 on the CPU)
+# and grows with the sums' length, so phases 12-13 draw the line at 1e-6
+FUSION_GRAD_NOISE = 1e-6
+# Phase 12 runs the tiny fusion step on two devices. With every ReLU mask and
+# sort order replayed, the card's trunks still leave the CPU's by 1e-5 to
+# 6e-5 of scale (K1's split-TF32 sums, cuDNN), and the four MMPI blocks at
+# random init amplify that to ~1e-3 at the decoder's outputs (printed by
+# phase 12); gradient leaves follow (1.6e-3 at worst on this card). The
+# step's parity with JAX is the float64 CPU test's; here each leaf is held
+# to 1e-2 of its scale
+FUSION_TINY_GRAD_TOL = 1e-2
+# BN running statistics after one step: 1e-5 (absolute and relative), as
+# tests/test_torch_port_train.py holds them; the fusion decoder's BNs sit
+# four MMPI blocks deep, where two fp32 runs already differ by 1e-5 (the
+# port's fp32 step against JAX's float64 one, on the CPU), so 1e-4 there
+STATS_TOL, FUSION_STATS_TOL = 1e-5, 1e-4
+# matched_ious is a mean IoU in [0, 1]: with random weights the matched
+# boxes barely overlap (mean ~3e-5 at tiny_config), so a 1e-6 move of a box
+# edge moves it by percents; it is held absolutely
+IOU_ATOL = 1e-5
 REPS, WARMUP, BATCH = 10, 3, 5
 TRAIN_REPS, TRAIN_WARMUP = 5, 2
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, and FLOP/s of the
@@ -166,12 +208,14 @@ def timing_text(t: dict) -> str:
 
 
 @contextlib.contextmanager
-def plain_kernels():
-    """Swap K1 and K2 for their plain versions where the model calls them
-    (the reference runs of phases 7 and 10; autograd of the plain K1 is the
-    plain version of its backward); restored on exit."""
+def plain_kernels(k1: bool = True):
+    """Swap K2, and K1 unless ``k1`` is False, for their plain versions where
+    the model calls them (the reference runs of phases 7, 10 and 13;
+    autograd of a plain version is the plain version of its backward);
+    restored on exit."""
     saved = (sparse_encoder.subm_conv_gemm, mmri_encoder.local_attn_fwd)
-    sparse_encoder.subm_conv_gemm = lambda f, nbr, w, valid, inv=None: smc.gathered_matmul(f, nbr, w, valid)
+    if k1:
+        sparse_encoder.subm_conv_gemm = lambda f, nbr, w, valid, inv=None: smc.gathered_matmul(f, nbr, w, valid)
     mmri_encoder.local_attn_fwd = la.local_attention
     try:
         yield
@@ -224,7 +268,7 @@ def sort_orders(orders: list, replay: bool, flips: list):
 
     def apply(x, *a, **k):
         own = sort(x, *a, **k).indices
-        idx = next(replayed)
+        idx = next(replayed).to(x.device)
         flips.append(not torch.equal(own, idx))
         dim = k.get("dim", a[0] if a else -1)
         return torch.return_types.sort((torch.gather(x, dim, idx), idx))
@@ -428,18 +472,19 @@ def check_k1_backward(cfg, batch, dev, gen, b: int):
     return recs
 
 
-def close_grads(got: dict, ref: dict, what: str) -> float:
-    """Every gradient leaf within GRAD_TOL of its scale (leaves that are 0 in
-    exact arithmetic: noise on both sides); returns the worst ratio."""
-    noise = GRAD_NOISE * max(g.abs().max().item() for g in ref.values())
+def close_grads(got: dict, ref: dict, what: str, noise: float = GRAD_NOISE, tol: float = GRAD_TOL) -> float:
+    """Every gradient leaf within ``tol`` of its scale (leaves below
+    ``noise`` of the largest, which are 0 in exact arithmetic: noise on both
+    sides); returns the worst ratio."""
+    line = noise * max(g.abs().max().item() for g in ref.values())
     worst = 0.0
     for name, r in ref.items():
         scale = r.abs().max().item()
-        if scale < noise:
-            assert got[name].abs().max().item() < noise, f"{what} {name}: not ~0"
+        if scale < line:
+            assert got[name].abs().max().item() < line, f"{what} {name}: not ~0"
             continue
         rel = (got[name] - r).abs().max().item() / scale
-        assert rel <= GRAD_TOL, f"{what} {name}: gradient max rel err {rel:.3e} > {GRAD_TOL}"
+        assert rel <= tol, f"{what} {name}: gradient max rel err {rel:.3e} > {tol} (scale {scale:.3e})"
         worst = max(worst, rel)
     return worst
 
@@ -457,35 +502,72 @@ def step_grads(step, batch, seed, targets=None, masks=None, replay=False, orders
     return metrics, targets, grads
 
 
-def check_tiny_lidar(dev):
-    """Phase 9: one tiny_lidar_config train step on the card vs the CPU path
-    (the CPU test's seed): the matching, losses, grad norm and BN statistics
-    of the card's own step; the gradients of a card step that replays the
-    CPU run's ReLU masks (:func:`relu_masks`)."""
-    cfg = tiny_lidar_config()
+def check_tiny_train(dev, cfg, name: str, fusion: bool = False) -> list:
+    """Phases 9 and 12: one tiny train step on the card vs the CPU path (the
+    CPU test's seed): the matching, losses and BN statistics of the card's
+    own step; the grad norm and gradients of a card step that replays the
+    CPU run's ReLU masks (:func:`relu_masks`) and sort orders
+    (:func:`sort_orders`, the matching's included), and how far that run's
+    decoder outputs are from the CPU's. ``fusion`` takes the fusion model's
+    tolerances (FUSION_*, IOU_ATOL). Returns the checks that failed, each
+    with its numbers (empty when all held)."""
+    noise, stats_tol, iou_atol, grad_tol = ((FUSION_GRAD_NOISE, FUSION_STATS_TOL, IOU_ATOL, FUSION_TINY_GRAD_TOL)
+                                            if fusion else (GRAD_NOISE, STATS_TOL, 0.0, GRAD_TOL))
     model = DeepInteraction(cfg.model, cfg.data.padded_img_shape)
     init_weights(model, seed=3)
     card_models = [copy.deepcopy(model) for _ in range(2)]
     np_batch = make_synthetic_batch(cfg, b=2, seed=3, with_gt=True)
-    cpu_masks, card_masks = [], []
+    cpu_masks, card_masks, cpu_orders, flips, preds = [], [], [], [], []
+    hooks = [m.pts_bbox_head.register_forward_hook(lambda mod, a, out: preds.append(out))
+             for m in (model, card_models[1])]
     ref_m, ref_t, ref_g = step_grads(TrainStep(cfg, model, 10, device="cpu"), to_torch(np_batch, "cpu"), 0,
-                                     masks=cpu_masks)
+                                     masks=cpu_masks, orders=cpu_orders)
     got_m, got_t, _ = step_grads(TrainStep(cfg, card_models[0], 10, device=dev), to_torch(np_batch, dev), 0,
                                  masks=card_masks)
-    assert torch.equal(got_t.assign.cpu(), ref_t.assign), "tiny_lidar: the card's matching differs"
-    for k, want in ref_m.items():
-        torch.testing.assert_close(got_m[k].cpu(), want, rtol=TRAIN_RTOL, atol=0.0, msg=k)
-    for name, b in model.named_buffers():
-        torch.testing.assert_close(card_models[0].get_buffer(name).cpu(), b, rtol=1e-5, atol=1e-5, msg=name)
-    flips = sum((a != b.cpu()).sum().item() for a, b in zip(cpu_masks, card_masks))
-    _, _, got_g = step_grads(TrainStep(cfg, card_models[1], 10, device=dev), to_torch(np_batch, dev), 0,
-                             masks=cpu_masks, replay=True)
-    assert set(got_g) == set(ref_g) == {n for n, _ in model.named_parameters()}
-    worst = close_grads({k: v.cpu() for k, v in got_g.items()}, ref_g, "tiny_lidar card vs CPU")
-    log(f"tiny_lidar_config train step on the card == CPU path: matching equal, {len(ref_m)} metrics "
-        f"(rtol {TRAIN_RTOL}), BN statistics (1e-5); ReLU inputs of opposite sign: {flips} of "
-        f"{sum(m.numel() for m in cpu_masks)}; with the CPU's ReLU masks {len(ref_g)} gradient leaves "
-        f"within {worst:.3e} of scale (tolerance {GRAD_TOL})")
+    problems = []
+
+    def held(check, *args, **kw):
+        try:
+            return check(*args, **kw)
+        except AssertionError as e:
+            problems.append(f"{name}: {e}")
+
+    def same(got, k):
+        a, r = (iou_atol, 0.0) if k == "matched_ious" and iou_atol else (0.0, TRAIN_RTOL)
+        held(torch.testing.assert_close, got[k].cpu(), ref_m[k], rtol=r, atol=a, msg=lambda m: f"{k}: {m}")
+
+    if not torch.equal(got_t.assign.cpu(), ref_t.assign):
+        problems.append(f"{name}: the card's matching differs")
+    for k in ref_m:
+        if k != "grad_norm":  # a gradient: compared with the masks replayed
+            same(got_m, k)
+    stats_err = 0.0
+    for b_name, b in model.named_buffers():
+        got = card_models[0].get_buffer(b_name).cpu()
+        stats_err = max(stats_err, (got - b).abs().max().item())
+        held(torch.testing.assert_close, got, b, rtol=stats_tol, atol=stats_tol,
+             msg=lambda m, n=b_name: f"{n}: {m}")
+    relu_flips = sum((a != b.cpu()).sum().item() for a, b in zip(cpu_masks, card_masks))
+    rep_m, _, got_g = step_grads(TrainStep(cfg, card_models[1], 10, device=dev), to_torch(np_batch, dev), 0,
+                                 masks=cpu_masks, replay=True, orders=cpu_orders, flips=flips)
+    for h in hooks:
+        h.remove()
+    head_div = max(rel_err(preds[1][k].detach().cpu(), v.detach())[1] for k, v in preds[0].items()
+                   if v.is_floating_point())
+    same(rep_m, "grad_norm")
+    assert set(got_g) == set(ref_g) <= {n for n, _ in model.named_parameters()}
+    worst = held(close_grads, {k: v.cpu() for k, v in got_g.items()}, ref_g, "card vs CPU", noise, grad_tol)
+    log(f"{name} train step on the card vs the CPU path: matching, {len(ref_m)} metrics (rtol {TRAIN_RTOL}; "
+        f"matched_ious atol {iou_atol:g}: {got_m['matched_ious'].item():.6g} vs {ref_m['matched_ious'].item():.6g}), "
+        f"BN statistics ({stats_tol:g}; max abs diff {stats_err:.3e}); ReLU inputs of opposite sign: "
+        f"{relu_flips} of {sum(m.numel() for m in cpu_masks)}; sort calls whose order differed: {sum(flips)} of "
+        f"{len(flips)}; with the CPU's ReLU masks and sort orders the decoder outputs within {head_div:.3e} "
+        f"of scale, grad_norm (rtol {TRAIN_RTOL}) and {len(ref_g)} gradient leaves (worst "
+        f"{worst if worst is not None else float('nan'):.3e} of scale, tolerance {grad_tol}); checks failed: "
+        f"{len(problems)}")
+    for p in problems:
+        log(f"  FAILED {p}")
+    return problems
 
 
 def run_lidar(dev, gen):
@@ -495,7 +577,8 @@ def run_lidar(dev, gen):
     assert b == 2, b
     batch = to_torch(make_synthetic_batch(cfg, b=b, seed=0, with_gt=True), dev)
     k1 = check_k1_backward(cfg, batch, dev, gen, b)
-    check_tiny_lidar(dev)
+    problems = check_tiny_train(dev, tiny_lidar_config(), "tiny_lidar_config")
+    assert not problems, problems
 
     model = DeepInteraction(cfg.model, cfg.data.padded_img_shape).to(dev)
     init_weights(model, seed=0)
@@ -559,6 +642,114 @@ def run_lidar(dev, gen):
         f"(min {min(times):.3f}, max {max(times):.3f}, {TRAIN_REPS} steps after {TRAIN_WARMUP} warm-ups); "
         f"peak memory allocated {peak / 2**30:.3f} GiB")
     return k1, launches
+
+
+def check_k2_backward(dev, gen):
+    """Phase 11: K2's backward against autograd of the plain version at the
+    two shapes of the fusion_base train step (B=2); times and the per-step
+    sum of launches x time."""
+    rec = {"max_abs_err": 0.0, "shapes": []}
+    per_step = 0.0
+    # p2i_local and i_iml of both MMRI layers over 2 x 6 views; p_iml of both
+    for shape, n in (((12, 112, 200, 128), 4), ((2, 180, 180, 128), 2)):
+        q, k, v, dout = (torch.randn(shape, generator=gen).to(dev) for _ in range(4))
+        got = la.local_attn_bwd(q, k, v, dout, 9)
+        ref = la.local_attention_bwd(q, k, v, dout, 9)
+        msg = []
+        for name, a, r in zip("qkv", got, ref):
+            err, rel = rel_err(a, r)
+            assert rel <= K2_BWD_TOL, f"K2 backward d{name} {list(shape)}: max rel err {rel:.3e} > {K2_BWD_TOL}"
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            msg.append(f"d{name} max_abs_err={err:.3e} max_rel_err={rel:.3e}")
+        b, h, w, c = shape
+        # q, k, v, dO read and dq, dk, dv written once; per pixel 81 taps x
+        # (q.k, dO.v, dS k, dS q, P dO), 2 C operations each, on CUDA cores
+        t = timing(lambda: la.local_attn_bwd(q, k, v, dout, 9), lambda: la.local_attention_bwd(q, k, v, dout, 9),
+                   bound(7 * 4 * b * h * w * c, b * h * w * 10 * 81 * c, "fp32"), n)
+        log(f"K2 local_attn_bwd {list(shape)} k=9: {' '.join(msg)} {timing_text(t)}")
+        rec["shapes"].append(dict(t, shape=f"{list(shape)} k=9"))
+        per_step += t["launch_ms"]
+        del q, k, v, dout, got, ref
+    log(f"K2 local_attn_bwd per fusion_base train step (B=2): sum of launches*ms = {per_step:.4f} ms")
+    rec["ms_per_step"] = per_step
+    return rec
+
+
+def run_fusion_train(dev, gen):
+    """Phases 11-13: the fusion_base train step at full width, B=2."""
+    k2b = check_k2_backward(dev, gen)
+    # phase 12's failures are raised after phase 13 has run and reported
+    problems = check_tiny_train(dev, tiny_config(), "tiny_config", fusion=True)
+
+    cfg = fusion_base_config()
+    b = cfg.data.samples_per_device
+    assert b == 2, b
+    batch = to_torch(make_synthetic_batch(cfg, b=b, seed=0, with_gt=True), dev)
+    model = DeepInteraction(cfg.model, cfg.data.padded_img_shape).to(dev)
+    init_weights(model, seed=0)
+    start = copy.deepcopy(model.state_dict())
+    step = TrainStep(cfg, model, 1000, device=dev)
+    counted = (smc.subm_conv_gemm, smc.subm_conv_dgrad, smc.subm_conv_wgrad, la.local_attn_fwd, la.local_attn_bwd)
+    for c in counted:
+        c.launches = 0
+    metrics, targets, grads = step_grads(step, batch, seed=1)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counted}
+    log(f"fusion_base train step launches, B={b}: {launches}")
+    # the LiDAR branch is frozen: K1 runs forward only (21 convs a sample);
+    # K2 runs 3 blocks in each MMRI layer (6), forward and backward
+    k2n = 3 * cfg.model.imgpts_neck.num_layers
+    assert launches == {"subm_conv_gemm": 21 * b, "subm_conv_dgrad": 0, "subm_conv_wgrad": 0,
+                        "local_attn_fwd": k2n, "local_attn_bwd": k2n}, launches
+    for k, v in metrics.items():
+        assert torch.isfinite(v).all(), f"non-finite {k}"
+    trainable = {n for n, q in model.named_parameters() if q.requires_grad}
+    assert set(grads) == trainable, sorted(trainable ^ set(grads))[:10]
+    assert all(torch.isfinite(g).all() for g in grads.values())
+    assert not any(n.startswith(("img_backbone.", "pts_middle_encoder.", "pts_backbone.")) for n in grads)
+    log("fusion_base train step: " + " ".join(f"{k}={v.item():.6g}" for k, v in metrics.items())
+        + f"; {len(grads)} trainable of {len(list(model.parameters()))} parameters have finite gradients")
+
+    # K2's forward and backward swapped for the plain version (K1 stays),
+    # from the same weights, statistics, dropout seed and matching; the
+    # kernels' run records its ReLU masks and sort orders, the plain run
+    # replays them
+    masks, orders, flips = [], [], []
+    model.load_state_dict(start)
+    metrics, _, grads = step_grads(step, batch, seed=1, targets=targets, masks=masks, orders=orders)
+    model.load_state_dict(start)
+    with plain_kernels(k1=False):
+        plain_metrics, _, plain_grads = step_grads(step, batch, seed=1, targets=targets, masks=masks, replay=True,
+                                                   orders=orders, flips=flips)
+    del masks, orders
+    worst = close_grads(grads, plain_grads, "K2 vs plain", FUSION_GRAD_NOISE)
+    line = FUSION_GRAD_NOISE * max(g.abs().max().item() for g in plain_grads.values())
+    small = sum(g.abs().max().item() < line for g in plain_grads.values())
+    err, rel = rel_err(metrics["loss_total"], plain_metrics["loss_total"])
+    log(f"fusion_base train step, K2 kernels vs plain: {len(grads)} trainable gradient leaves (MMRI encoder, "
+        f"MMPI blocks, image heatmap head), worst {worst:.3e} of scale (tolerance {GRAD_TOL}; {small} leaves "
+        f"below {FUSION_GRAD_NOISE:g} of the largest held as ~0); loss_total rel "
+        f"diff {rel:.3e}; sort calls whose own order differed from the kernel run's: {sum(flips)} of {len(flips)}")
+    del grads, plain_grads
+
+    model.load_state_dict(start)
+    for _ in range(TRAIN_WARMUP):
+        step(batch, torch.Generator(device=dev).manual_seed(2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for i in range(TRAIN_REPS):
+        t0 = time.perf_counter()
+        m = step(batch, torch.Generator(device=dev).manual_seed(3 + i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        assert torch.isfinite(m["loss_total"]), m
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"fusion_base train step, B={b}: ms/step median {statistics.median(times):.3f} "
+        f"(min {min(times):.3f}, max {max(times):.3f}, {TRAIN_REPS} steps after {TRAIN_WARMUP} warm-ups); "
+        f"peak memory allocated {peak / 2**30:.3f} GiB")
+    assert not problems, problems
+    return k2b, launches
 
 
 def run_slice(dev, gen):
@@ -653,28 +844,40 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     k1_eval, k2, eval_launches = run_slice(dev, gen)
     k1, train_launches = run_lidar(dev, gen)
+    k2b, fusion_launches = run_fusion_train(dev, gen)
 
     src = "deepinteraction_tpu_torch/csrc/subm_conv.cu"
     eval_path, train_path = "fusion_base eval, B=1", "lidar_only train step, B=2"
+    fusion_path = "fusion_base train step, B=2"
+
+    def by_path(name, eval_n=0):
+        return {eval_path: eval_n, train_path: train_launches.get(name, 0), fusion_path: fusion_launches[name]}
+
     fwd = dict(k1["fwd"], shapes=k1_eval["shapes"] + k1["fwd"]["shapes"], ms_per_frame=k1_eval["ms_per_frame"],
                max_abs_err=max(k1_eval["max_abs_err"], k1["fwd"]["max_abs_err"]))
     kernels = [
         {"name": "subm_conv_gemm", "route": "cuda", "source": src,
          "replaces": "deepinteraction_tpu/ops/sparse_conv_banded.py:98", **headline(fwd, "eval stage3"),
          "launches": eval_launches["subm_conv_gemm"], "path": eval_path,
-         "launches_by_path": {eval_path: eval_launches["subm_conv_gemm"],
-                              train_path: train_launches["subm_conv_gemm"]},
-         "library_ms": None},
+         "launches_by_path": by_path("subm_conv_gemm", eval_launches["subm_conv_gemm"]), "library_ms": None},
         {"name": "subm_conv_dgrad", "route": "cuda", "source": src,
          "replaces": "deepinteraction_tpu/ops/sparse_conv_banded.py:227", **headline(k1["dgrad"], "train stage3"),
-         "launches": train_launches["subm_conv_dgrad"], "path": train_path, "library_ms": None},
+         "launches": train_launches["subm_conv_dgrad"], "path": train_path,
+         "launches_by_path": by_path("subm_conv_dgrad"), "library_ms": None},
         {"name": "subm_conv_wgrad", "route": "cuda", "source": src,
          "replaces": "deepinteraction_tpu/ops/sparse_conv_banded.py:234", **headline(k1["wgrad"], "train stage3"),
-         "launches": train_launches["subm_conv_wgrad"], "path": train_path, "library_ms": None},
+         "launches": train_launches["subm_conv_wgrad"], "path": train_path,
+         "launches_by_path": by_path("subm_conv_wgrad"), "library_ms": None},
         {"name": "local_attn_fwd", "route": "cuda",
          "source": "deepinteraction_tpu_torch/csrc/local_attention.cu",
          "replaces": "deepinteraction_tpu/ops/local_attention_pallas.py:58", **headline(k2, "[6, 112, 200, 128]"),
-         "launches": eval_launches["local_attn_fwd"], "path": eval_path, "library_ms": None},
+         "launches": eval_launches["local_attn_fwd"], "path": eval_path,
+         "launches_by_path": by_path("local_attn_fwd", eval_launches["local_attn_fwd"]), "library_ms": None},
+        {"name": "local_attn_bwd", "route": "cuda",
+         "source": "deepinteraction_tpu_torch/csrc/local_attention.cu",
+         "replaces": "deepinteraction_tpu/ops/local_attention_pallas.py:162", **headline(k2b, "[12, 112, 200, 128]"),
+         "launches": fusion_launches["local_attn_bwd"], "path": fusion_path,
+         "launches_by_path": by_path("local_attn_bwd"), "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-// K2: fused k x k local (sliding-window) attention on NHWC maps (forward).
+// K2: fused k x k local (sliding-window) attention on NHWC maps, forward
+// (local_attn_fwd_kernel) and backward (the two passes at the end of the file).
 //
 //   out[p] = sum_t softmax_t(q[p] . k[p + t] / sqrt(C)) * v[p + t]
 //
@@ -310,4 +311,226 @@ extern "C" int di_local_attn_fwd(const void* q, const void* k, const void* v,
     case 9: return launch_ks<9>(qf, kf, vf, o, b, h, w, c, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// ---------------------------------------------------------------------------
+// Backward: dq, dk, dv of the forward above, given dO.
+//
+// The JAX package has no backward kernel: its custom VJP re-differentiates
+// the XLA oracle (deepinteraction_tpu/ops/local_attention_pallas.py::_bwd,
+// :162-165). With S_t = q . k_t / sqrt(C) over the k*k taps t, P = softmax(S),
+// dP_t = dO . v_t and D = sum_t P_t dP_t:
+//
+//   dS_t = P_t (dP_t - D) / sqrt(C),  dq = sum_t dS_t k_t,
+//   dk_j = sum_t dS[j - off_t, t] q[j - off_t],  dv_j = sum_t P[j - off_t, t] dO[j - off_t]
+//
+// A tap outside the map is a zero key (S_t = 0, still in the softmax) and a
+// zero value (dP_t = 0); it passes no gradient anywhere.
+//
+// Bound on the H100 at the main-path shapes: the useful operations are
+// 10 k^2 C per pixel (S, dP, dq, dk, dv: 2 k^2 C each) against the bytes of
+// q, k, v, dO read once and dq, dk, dv written once; on fp32 CUDA cores
+// (67 TFLOP/s) the operations bind ([12,112,200,128], k = 9: 27.9 GFLOP,
+// 0.416 ms, against 963 MB, 0.288 ms).
+//
+// Design: simple, deterministic, no atomics. Two passes, a warp per pixel,
+// each lane holding 4 consecutive channels (one 16-byte load per row):
+//   pass A, per query pixel: the k^2 logits and dP_t by warp reductions into
+//     shared memory, the softmax and D across the warp's lanes, then dq; P and
+//     dS go to a [B, H, W, k^2] fp32 scratch;
+//   pass B, per key pixel j: gathers over the k^2 queries whose window holds
+//     j (P and dS are one broadcast load each) for dk and dv.
+// The k^2 rows a warp reads overlap its neighbours' and come from L1/L2.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kBwdWarps = 8;
+constexpr int kMaxTaps = kMaxKernel * kMaxKernel;
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+template <int VEC>
+struct Vec;
+template <>
+struct Vec<4> {
+  using T = float4;
+  __device__ static T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ static float dot(T a, T b) { return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w; }
+  __device__ static void axpy(T& acc, float s, T x) {
+    acc.x += s * x.x; acc.y += s * x.y; acc.z += s * x.z; acc.w += s * x.w;
+  }
+};
+template <>
+struct Vec<1> {
+  using T = float;
+  __device__ static T zero() { return 0.f; }
+  __device__ static float dot(T a, T b) { return a * b; }
+  __device__ static void axpy(T& acc, float s, T x) { acc += s * x; }
+};
+
+template <int VEC>
+__device__ __forceinline__ typename Vec<VEC>::T ld(const float* p) {
+  return *reinterpret_cast<const typename Vec<VEC>::T*>(p);
+}
+
+template <int VEC>
+__device__ __forceinline__ void st(float* p, typename Vec<VEC>::T x) {
+  *reinterpret_cast<typename Vec<VEC>::T*>(p) = x;
+}
+
+// pass A: one warp per query pixel
+template <int VEC>
+__global__ void __launch_bounds__(kBwdWarps * 32)
+    local_attn_bwd_query_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ dout,
+                                float* __restrict__ dq, float* __restrict__ pbuf,
+                                float* __restrict__ dsbuf, int64_t npix, int h, int w, int c,
+                                int ks, float scale) {
+  using V = Vec<VEC>;
+  __shared__ float sm[kBwdWarps][2][kMaxTaps];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int64_t pix = (int64_t)blockIdx.x * kBwdWarps + warp;
+  if (pix >= npix) return;  // the whole warp; the kernel has no block barrier
+  const int x = (int)(pix % w);
+  const int y = (int)((pix / w) % h);
+  const int64_t img = pix - (int64_t)y * w - x;
+  const int r = ks / 2, taps = ks * ks;
+  float* s = sm[warp][0];   // logits, then P
+  float* dp = sm[warp][1];  // dP, then dS
+  const float* qp = q + pix * c;
+  const float* gp = dout + pix * c;
+
+  for (int t = 0; t < taps; ++t) {
+    const int yy = y + t / ks - r, xx = x + t % ks - r;
+    float a = 0.f, d = 0.f;
+    if (yy >= 0 && yy < h && xx >= 0 && xx < w) {  // the same for the whole warp
+      const int64_t j = (img + (int64_t)yy * w + xx) * c;
+      for (int cc = lane * VEC; cc < c; cc += 32 * VEC) {
+        a += V::dot(ld<VEC>(qp + cc), ld<VEC>(k + j + cc));
+        d += V::dot(ld<VEC>(gp + cc), ld<VEC>(v + j + cc));
+      }
+    }
+    a = warp_sum(a);
+    d = warp_sum(d);
+    if (lane == 0) {
+      s[t] = a * scale;
+      dp[t] = d;
+    }
+  }
+  __syncwarp();
+  float m = -INFINITY;
+  for (int t = lane; t < taps; t += 32) m = fmaxf(m, s[t]);
+  m = warp_max(m);
+  float l = 0.f;
+  for (int t = lane; t < taps; t += 32) l += expf(s[t] - m);
+  const float inv = 1.f / warp_sum(l);
+  float dsum = 0.f;
+  for (int t = lane; t < taps; t += 32) {
+    const float p = expf(s[t] - m) * inv;
+    s[t] = p;
+    dsum += p * dp[t];
+  }
+  dsum = warp_sum(dsum);
+  for (int t = lane; t < taps; t += 32) {
+    const float ds = s[t] * (dp[t] - dsum) * scale;
+    dp[t] = ds;
+    pbuf[pix * taps + t] = s[t];
+    dsbuf[pix * taps + t] = ds;
+  }
+  __syncwarp();
+  for (int cc = lane * VEC; cc < c; cc += 32 * VEC) {
+    typename V::T acc = V::zero();
+    for (int t = 0; t < taps; ++t) {
+      const int yy = y + t / ks - r, xx = x + t % ks - r;
+      if (yy >= 0 && yy < h && xx >= 0 && xx < w)
+        V::axpy(acc, dp[t], ld<VEC>(k + (img + (int64_t)yy * w + xx) * c + cc));
+    }
+    st<VEC>(dq + pix * c + cc, acc);
+  }
+}
+
+// pass B: one warp per key pixel j; query j - off_t reads j at its tap t
+template <int VEC>
+__global__ void __launch_bounds__(kBwdWarps * 32)
+    local_attn_bwd_key_kernel(const float* __restrict__ q, const float* __restrict__ dout,
+                              const float* __restrict__ pbuf, const float* __restrict__ dsbuf,
+                              float* __restrict__ dk, float* __restrict__ dv, int64_t npix, int h,
+                              int w, int c, int ks) {
+  using V = Vec<VEC>;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int64_t pix = (int64_t)blockIdx.x * kBwdWarps + warp;
+  if (pix >= npix) return;
+  const int x = (int)(pix % w);
+  const int y = (int)((pix / w) % h);
+  const int64_t img = pix - (int64_t)y * w - x;
+  const int r = ks / 2, taps = ks * ks;
+  for (int cc = lane * VEC; cc < c; cc += 32 * VEC) {
+    typename V::T ak = V::zero(), av = V::zero();
+    for (int t = 0; t < taps; ++t) {
+      const int yy = y - (t / ks - r), xx = x - (t % ks - r);
+      if (yy < 0 || yy >= h || xx < 0 || xx >= w) continue;
+      const int64_t i = img + (int64_t)yy * w + xx;
+      V::axpy(ak, dsbuf[i * taps + t], ld<VEC>(q + i * c + cc));
+      V::axpy(av, pbuf[i * taps + t], ld<VEC>(dout + i * c + cc));
+    }
+    st<VEC>(dk + pix * c + cc, ak);
+    st<VEC>(dv + pix * c + cc, av);
+  }
+}
+
+template <int VEC>
+int launch_bwd(const float* q, const float* k, const float* v, const float* dout, float* dq,
+               float* dk, float* dv, float* p, float* ds, int64_t npix, int h, int w, int c,
+               int ks, float scale, cudaStream_t stream) {
+  const int64_t blocks = (npix + kBwdWarps - 1) / kBwdWarps;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  local_attn_bwd_query_kernel<VEC><<<(unsigned)blocks, kBwdWarps * 32, 0, stream>>>(
+      q, k, v, dout, dq, p, ds, npix, h, w, c, ks, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  local_attn_bwd_key_kernel<VEC><<<(unsigned)blocks, kBwdWarps * 32, 0, stream>>>(
+      q, dout, p, ds, dk, dv, npix, h, w, c, ks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q, k, v, dout [B, H, W, C] fp32 -> dq, dk, dv; p and ds are [B, H, W, ks*ks]
+// fp32 scratch. ks odd, 1 .. kMaxKernel.
+extern "C" int di_local_attn_bwd(const void* q, const void* k, const void* v, const void* dout,
+                                 void* dq, void* dk, void* dv, void* p, void* ds, int b, int h,
+                                 int w, int c, int ks, float scale, void* stream) {
+  if (b <= 0 || h <= 0 || w <= 0 || c <= 0) return 0;
+  if (ks % 2 != 1 || ks < 1 || ks > kMaxKernel) return static_cast<int>(cudaErrorInvalidValue);
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* gf = static_cast<const float*>(dout);
+  float* dqf = static_cast<float*>(dq);
+  float* dkf = static_cast<float*>(dk);
+  float* dvf = static_cast<float*>(dv);
+  const bool vec = c % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                     reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+                     reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
+                     reinterpret_cast<uintptr_t>(dv)) & 15) == 0;
+  const int64_t npix = (int64_t)b * h * w;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pf = static_cast<float*>(p);
+  float* dsf = static_cast<float*>(ds);
+  return vec ? launch_bwd<4>(qf, kf, vf, gf, dqf, dkf, dvf, pf, dsf, npix, h, w, c, ks, scale, s)
+             : launch_bwd<1>(qf, kf, vf, gf, dqf, dkf, dvf, pf, dsf, npix, h, w, c, ks, scale, s);
 }

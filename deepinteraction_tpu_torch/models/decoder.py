@@ -4,10 +4,12 @@ then alternating image / LiDAR predictive-interaction blocks. In LiDAR-only
 mode (TransFusion-L) there is one heatmap head and no MMPI block: the
 initial layer is the output.
 
-- ``train=True`` (LiDAR-only mode only, so far) normalises with batch
-  statistics and applies the attention dropout of the JAX
-  ``TransformerDecoderLayer``, with masks from the caller's generator. The
-  proposal heatmap and the query positions carry no gradient, as in JAX.
+- ``train=True`` normalises with batch statistics and applies the
+  attention dropout of the JAX ``TransformerDecoderLayer`` and of the MMPI
+  blocks' self-attention, with masks from the caller's generator. The
+  proposal heatmap, the query positions and the boxes the MMPI blocks
+  decode (so their ROIs and image projections) carry no gradient, where
+  JAX stops it.
 
 - Proposal top-k is a stable descending sort: on ties the smallest index
   wins, as ``jax.lax.top_k`` does (``torch.topk`` does not promise it).
@@ -107,9 +109,9 @@ class DynamicConv(nn.Module):
 class RCNNCore(nn.Module):
     """Self-attn -> DynamicConv -> FFN (exact-erf GELU) trunk."""
 
-    def __init__(self, c: int, num_heads: int):
+    def __init__(self, c: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
-        self.self_attn = TorchMHA(c, num_heads)
+        self.self_attn = TorchMHA(c, num_heads, dropout)
         self.norm1 = nn.LayerNorm(c)
         self.dyconv = DynamicConv(c, c)
         self.norm2 = nn.LayerNorm(c)
@@ -117,8 +119,9 @@ class RCNNCore(nn.Module):
         self.linear2 = nn.Linear(4 * c, c)
         self.norm3 = nn.LayerNorm(c)
 
-    def forward(self, query_feat, roi_feats, attn_mask=None):
-        y = self.self_attn(query_feat, query_feat, query_feat, attn_mask=attn_mask)
+    def forward(self, query_feat, roi_feats, attn_mask=None, train: bool = False, generator=None):
+        y = self.self_attn(query_feat, query_feat, query_feat, attn_mask=attn_mask, train=train,
+                           generator=generator)
         q = self.norm1(query_feat + y)
         q = self.norm2(q + self.dyconv(q, roi_feats))
         y = self.linear2(F.gelu(self.linear1(q)))
@@ -132,13 +135,14 @@ class ImageRCNNBlock(nn.Module):
     def __init__(self, cfg: DecoderConfig, coder: TransFusionBBoxCoder, input_shape):
         super().__init__()
         self.cfg, self.coder, self.input_shape = cfg, coder, tuple(input_shape)
-        self.core = RCNNCore(cfg.hidden_channel, cfg.num_heads)
+        self.core = RCNNCore(cfg.hidden_channel, cfg.num_heads, cfg.dropout)
 
-    def forward(self, query_feat, res_layer, img_feats, batch):
+    def forward(self, query_feat, res_layer, img_feats, batch, train: bool = False, generator=None):
         b, p, c = query_feat.shape
         v = img_feats.shape[1]
         ih, iw = self.input_shape
         ccfg = self.coder.cfg
+        res_layer = {k: t.detach() for k, t in res_layer.items()}  # JAX stop_gradient
         boxes = self.coder.decode(res_layer).boxes
         qx = res_layer["center"][..., 0] * ccfg.out_size_factor * ccfg.voxel_size[0] + ccfg.pc_range[0]
         qy = res_layer["center"][..., 1] * ccfg.out_size_factor * ccfg.voxel_size[1] + ccfg.pc_range[1]
@@ -174,7 +178,7 @@ class ImageRCNNBlock(nn.Module):
         # query i attends the queries on its winning view (diagonal kept on)
         attn_mask = torch.gather(on_img, 1, sel[:, :, None].expand(b, p, p))
         attn_mask = attn_mask | torch.eye(p, dtype=torch.bool, device=on_img.device)[None]
-        refined = self.core(query_feat, rois, attn_mask)
+        refined = self.core(query_feat, rois, attn_mask, train, generator)
         return torch.where(any_on[..., None], refined, refined.new_zeros(())), eff
 
 
@@ -184,10 +188,11 @@ class PointRCNNBlock(nn.Module):
     def __init__(self, cfg: DecoderConfig, coder: TransFusionBBoxCoder):
         super().__init__()
         self.coder = coder
-        self.core = RCNNCore(cfg.hidden_channel, cfg.num_heads)
+        self.core = RCNNCore(cfg.hidden_channel, cfg.num_heads, cfg.dropout)
 
-    def forward(self, query_feat, res_layer, bev_feat):
+    def forward(self, query_feat, res_layer, bev_feat, train: bool = False, generator=None):
         b, p, c = query_feat.shape
+        res_layer = {k: t.detach() for k, t in res_layer.items()}  # JAX stop_gradient
         boxes = self.coder.decode(res_layer).boxes[..., :7]
         boxes = torch.cat([boxes[..., :3], boxes[..., 3:6] * 2.0, boxes[..., 6:]], -1)
         crn = box_corners(boxes)[..., :2]  # [B, P, 8, 2]
@@ -198,7 +203,7 @@ class PointRCNNBlock(nn.Module):
         rois = torch.stack([
             roi_align(bev_feat[i], rect[i], output_size=7, spatial_scale=1.0) for i in range(b)
         ]).reshape(b, p, 49, c)
-        return self.core(query_feat, rois), None
+        return self.core(query_feat, rois, None, train, generator), None
 
 
 class Decoder(nn.Module):
@@ -234,11 +239,6 @@ class Decoder(nn.Module):
                 num_proposals: int | None = None, train: bool = False,
                 generator: torch.Generator | None = None):
         cfg = self.cfg
-        if train and cfg.num_mmpi:
-            raise NotImplementedError(
-                "the MMPI blocks' train mode is not ported yet (ROADMAP: the "
-                "fusion_base train step)"
-            )
         p = num_proposals or cfg.num_proposals
         lidar_feat, new_lidar_feat = pts_inputs
         b, hb, wb, c = lidar_feat.shape
@@ -249,7 +249,7 @@ class Decoder(nn.Module):
             dense_heatmap_img = dense_heatmap
             heatmap = torch.sigmoid(dense_heatmap).detach()
         else:
-            dense_heatmap_img = self.heatmap_head_img_1(self.heatmap_head_img_0(new_lidar_feat))
+            dense_heatmap_img = self.heatmap_head_img_1(self.heatmap_head_img_0(new_lidar_feat, train))
             heatmap = ((torch.sigmoid(dense_heatmap) + torch.sigmoid(dense_heatmap_img)) / 2.0).detach()
 
         # local-max NMS: 3x3 in the interior, the border zeroed; k=1 for
@@ -273,12 +273,12 @@ class Decoder(nn.Module):
         one_hot = F.one_hot(top_cls.long(), n_cls).to(query_feat.dtype)
         query_feat = query_feat + self.class_encoding(one_hot)
 
-        ys = torch.div(top_pos, wb, rounding_mode="floor").float() + 0.5
-        xs = (top_pos % wb).float() + 0.5
+        dt, dev = lidar_feat.dtype, lidar_feat.device
+        ys = torch.div(top_pos, wb, rounding_mode="floor").to(dt) + 0.5
+        xs = (top_pos % wb).to(dt) + 0.5
         query_pos = torch.stack([xs, ys], -1)
-        dev = lidar_feat.device
-        rows = torch.arange(hb, dtype=torch.float32, device=dev) + 0.5
-        cols = torch.arange(wb, dtype=torch.float32, device=dev) + 0.5
+        rows = torch.arange(hb, dtype=dt, device=dev) + 0.5
+        cols = torch.arange(wb, dtype=dt, device=dev) + 0.5
         gy, gx = torch.meshgrid(rows, cols, indexing="ij")
         bev_pos = torch.stack([gx.reshape(-1), gy.reshape(-1)], -1)[None].expand(b, hb * wb, 2)
 
@@ -294,13 +294,13 @@ class Decoder(nn.Module):
             query_pos = res_layer["center"].detach()
             if i % 2 == 0:
                 query_feat, eff_view = getattr(self, f"mmpi{i}_img")(
-                    prev_query_feat, res_layer, img_feats, batch
+                    prev_query_feat, res_layer, img_feats, batch, train, generator
                 )
             else:
                 query_feat, eff_view = getattr(self, f"mmpi{i}_pts")(
-                    prev_query_feat, res_layer, new_lidar_feat
+                    prev_query_feat, res_layer, new_lidar_feat, train, generator
                 )
-            res_layer = getattr(self, f"mmpi{i}_pred")(torch.cat([query_feat, prev_query_feat], -1))
+            res_layer = getattr(self, f"mmpi{i}_pred")(torch.cat([query_feat, prev_query_feat], -1), train)
             res_layer["center"] = res_layer["center"] + query_pos
             if i % 2 == 0:
                 on_img = eff_view >= 0

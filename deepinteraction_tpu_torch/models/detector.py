@@ -1,17 +1,19 @@
 """DeepInteraction detector (port of ``deepinteraction_tpu/models/
 detector.py``).
 
-- ``fusion_base`` eval: dual voxelization, sparse middle encoder, SECOND +
-  SECONDFPN, ResNet + FPN, the MMRI v1 encoder and the MMPI v1 decoder.
+- ``fusion_base``, eval and train: dual voxelization, sparse middle
+  encoder, SECOND + SECONDFPN, ResNet + FPN, the MMRI v1 encoder and the
+  MMPI v1 decoder.
 - LiDAR-only (``cfg.lidar_only``, TransFusion-L), eval and train: one
   voxelization, the sparse encoder, SECOND + SECONDFPN, ``shared_conv`` and
   the query decoder with one heatmap head and no MMPI block.
 
 ``forward(batch)`` is the eval call, under ``torch.no_grad()``.
 ``forward(batch, train=True, generator=g)`` keeps the autograd graph,
-voxelizes at the train capacity ``max_voxels[0]``, normalises with batch
-statistics (updating the running ones) and draws the dropout masks from
-``g``; only the LiDAR-only model takes it so far.
+voxelizes the voxels and the I2P pillars at their train capacities
+``max_voxels[0]``, normalises with batch statistics (updating the running
+ones; the image backbone only when ``img_backbone.frozen_stages < 0``, as
+in JAX) and draws the dropout masks from ``g``.
 
 Batch dict (tensors): points [B, N, 5], points_mask [B, N], images
 [B, V, H, W, 3], lidar2img / img2lidar [B, V, 4, 4], lidar_aug /
@@ -76,17 +78,11 @@ class DeepInteraction(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor], train: bool = False,
                 generator: torch.Generator | None = None) -> Dict[str, torch.Tensor]:
+        fn = self._lidar_only if self.cfg.lidar_only else self._fusion
         if train:
-            if not self.cfg.lidar_only:
-                raise NotImplementedError(
-                    "the fusion train step is not ported yet (ROADMAP: K2's "
-                    "backward and the image-branch train modes)"
-                )
-            return self._lidar_only(batch, True, generator)
+            return fn(batch, True, generator)
         with torch.no_grad():
-            if self.cfg.lidar_only:
-                return self._lidar_only(batch, False, None)
-            return self._fusion_eval(batch)
+            return fn(batch, False, None)
 
     def _lidar_bev(self, batch, train: bool):
         """Voxelize -> sparse encoder -> SECOND + SECONDFPN outputs."""
@@ -108,28 +104,33 @@ class DeepInteraction(nn.Module):
         return self.pts_bbox_head((pts_conv, pts_conv), None, batch, num_proposals=self.num_proposals,
                                   train=train, generator=generator)
 
-    def _fusion_eval(self, batch):
+    def _fusion(self, batch, train: bool, generator):
+        """JAX ``DeepInteraction.__call__`` (v1): image branch, LiDAR BEV,
+        I2P pillars, the MMRI encoder, then the MMPI decoder."""
         cfg = self.cfg
         b, v = batch["images"].shape[:2]
 
         imgs = batch["images"].reshape(b * v, *batch["images"].shape[2:])
-        fpn0 = self.img_neck(self.img_backbone(imgs), num_levels=1)[0]
+        feats = self.img_backbone(imgs, train and cfg.img_backbone.frozen_stages < 0)
+        fpn0 = self.img_neck(feats, num_levels=1)[0]
         img_feats = fpn0.reshape(b, v, *fpn0.shape[1:])
 
-        pts_feats = self._lidar_bev(batch, False)[0]
+        pts_feats = self._lidar_bev(batch, train)[0]
 
         pl = cfg.pts_pillar_layer
+        cap = pl.max_voxels[0] if train else pl.max_voxels[1]
         po = voxelize_batched(
             batch["points"], batch["points_mask"], voxel_size=pl.voxel_size,
             point_cloud_range=pl.point_cloud_range, max_num_points=pl.max_num_points,
-            max_voxels=pl.max_voxels[1],
+            max_voxels=cap,
         )
         mmri_batch = dict(batch)
         mmri_batch.update(
             pillars=po.voxels,
             pillar_counts=po.num_points,
             pillar_coords=po.coords,
-            pillar_valid=torch.arange(pl.max_voxels[1], device=imgs.device)[None] < po.num_voxels[:, None],
+            pillar_valid=torch.arange(cap, device=imgs.device)[None] < po.num_voxels[:, None],
         )
-        new_img, (pts_conv, new_pts) = self.imgpts_neck(img_feats, pts_feats, mmri_batch)
-        return self.pts_bbox_head((pts_conv, new_pts), new_img, mmri_batch, num_proposals=self.num_proposals)
+        new_img, (pts_conv, new_pts) = self.imgpts_neck(img_feats, pts_feats, mmri_batch, train)
+        return self.pts_bbox_head((pts_conv, new_pts), new_img, mmri_batch, num_proposals=self.num_proposals,
+                                  train=train, generator=generator)

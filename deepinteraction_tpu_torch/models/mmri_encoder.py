@@ -2,10 +2,22 @@
 in the reference form:
 
 - I2P keys come from every view (no top-2-view compaction), sampled
-  bilinearly, over all pillars in one pass (no chunking);
+  bilinearly, over all pillars in one pass (no chunking) in eval;
 - the BEVWarp depth scatter runs per view, the closest depth winning
   (``scatter_reduce(amin)``), then the exact depth fill;
-- local attention runs on kernel K2 (``ops/local_attention.py``).
+- local attention runs on kernel K2 (``ops/local_attention.py``), forward
+  and backward.
+
+``train=True`` normalises with batch statistics. I2P then runs in chunks of
+``I2P_CHUNK`` pillars, each under ``torch.utils.checkpoint``: the backward
+samples a chunk's keys again instead of keeping every chunk's sampled keys
+and their projections, as JAX rematerialises its chunk loop
+(``mmri_encoder.py:152-154``, ``:328-337``). At the ``fusion_base`` train
+capacity (30 000 pillars x 20 points x 6 views x 128 channels) one fp32
+key tensor is 1.84 GB per sample and layer; keeping the sampled keys and
+their three projections for autograd would hold about 30 GB at B=2.
+The BEVWarp and I2P geometry depend on points and calibration only and
+carry no gradient.
 
 Layouts: images [B, V, H, W, C], BEV [B, Hb, Wb, C], channels last.
 """
@@ -19,12 +31,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
 from ..configs import MMRIEncoderConfig
 
 from ..ops.depth_fill import fill_in_multiscale
 from ..ops.local_attention import local_attn_fwd
 from ..utils.geometry import grid_sample_2d, transform_points
 from .layers import Conv2d, ConvBNReLU
+
+# pillars per rematerialised I2P chunk in train mode (the JAX chunk size)
+I2P_CHUNK = 4096
 
 
 class LocalContextAttentionBlock(nn.Module):
@@ -39,10 +56,10 @@ class LocalContextAttentionBlock(nn.Module):
         self.k1 = ConvBNReLU(c, c, 1)
         self.v = ConvBNReLU(cin_source, c, 1)
 
-    def forward(self, target, source):
-        q = self.q1(self.q0(target))
-        k = self.k1(self.k0(source))
-        return local_attn_fwd(q, k, self.v(source), self.kernel)
+    def forward(self, target, source, train: bool = False):
+        q = self.q1(self.q0(target, train), train)
+        k = self.k1(self.k0(source, train), train)
+        return local_attn_fwd(q, k, self.v(source, train), self.kernel)
 
 
 def _project(hom, mat, input_shape):
@@ -90,31 +107,45 @@ class MMRI_I2P(nn.Module):
         self.v_proj = nn.Linear(c, c)
         self.out_proj = nn.Linear(c, c)
 
-    def forward(self, lidar_feat, img_feats, pillar_coords, pillar_valid, geom):
+    def _attend(self, qh, feat, grid, kmask):
+        """Pillar queries qh [n, C] over their keys: bilinear samples of
+        ``feat`` [V, C, H, W] at ``grid`` [V, n*P, 2], masked by ``kmask``
+        [n, P*V]. Returns (out [n, C], any_key [n])."""
+        v, c = feat.shape[:2]
+        n = qh.shape[0]
+        sampled = F.grid_sample(
+            feat, grid[:, None], mode="bilinear", padding_mode="zeros", align_corners=False
+        )  # [V, C, 1, n*P]
+        keys = sampled[:, :, 0].reshape(v, c, n, -1).permute(2, 3, 0, 1).reshape(n, -1, c)
+        kh = self.k_proj(keys)
+        vh = self.v_proj(keys)
+        logits = torch.einsum("qc,qkc->qk", qh, kh)
+        logits = torch.where(kmask, logits, logits.new_full((), float("-inf")))
+        any_key = kmask.any(-1)
+        attn = torch.softmax(logits, -1)
+        attn = torch.where(any_key[:, None], attn, attn.new_zeros(()))
+        return self.out_proj(torch.einsum("qk,qkc->qc", attn, vh)), any_key
+
+    def forward(self, lidar_feat, img_feats, pillar_coords, pillar_valid, geom, train: bool = False):
         grids, kmask = geom
         b, hb, wb, c = lidar_feat.shape
-        v = img_feats.shape[1]
         kp = pillar_coords.shape[1]
+        p = grids.shape[2] // kp
         outs = []
         for i in range(b):
             coor = pillar_coords[i].long()
             qh = self.q_proj(lidar_feat[i][coor[:, 1], coor[:, 2]]) * (1.0 / math.sqrt(c))
-            sampled = F.grid_sample(
-                img_feats[i].permute(0, 3, 1, 2),
-                grids[i][:, None],
-                mode="bilinear",
-                padding_mode="zeros",
-                align_corners=False,
-            )  # [V, C, 1, Kp*P]
-            keys = sampled[:, :, 0].reshape(v, c, kp, -1).permute(2, 3, 0, 1).reshape(kp, -1, c)
-            kh = self.k_proj(keys)
-            vh = self.v_proj(keys)
-            logits = torch.einsum("qc,qkc->qk", qh, kh)
-            logits = torch.where(kmask[i], logits, logits.new_full((), float("-inf")))
-            any_key = kmask[i].any(-1)
-            attn = torch.softmax(logits, -1)
-            attn = torch.where(any_key[:, None], attn, attn.new_zeros(()))
-            out = self.out_proj(torch.einsum("qk,qkc->qc", attn, vh))
+            feat = img_feats[i].permute(0, 3, 1, 2)
+            if train:
+                parts = [
+                    checkpoint(self._attend, qh[s:s + I2P_CHUNK], feat,
+                               grids[i][:, s * p:(s + I2P_CHUNK) * p], kmask[i][s:s + I2P_CHUNK],
+                               use_reentrant=False)
+                    for s in range(0, kp, I2P_CHUNK)
+                ]
+                out, any_key = (torch.cat(t) for t in zip(*parts))
+            else:
+                out, any_key = self._attend(qh, feat, grids[i], kmask[i])
             has_key = any_key & pillar_valid[i]
             bev = lidar_feat.new_zeros(hb, wb, c)
             bev[coor[has_key, 1], coor[has_key, 2]] = out[has_key]
@@ -122,10 +153,10 @@ class MMRI_I2P(nn.Module):
         return torch.stack(outs)
 
 
-def _linspace(start: float, stop: float, n: int, device) -> torch.Tensor:
-    """jnp.linspace's float32 arithmetic: start + i * step, exact endpoint."""
+def _linspace(start: float, stop: float, n: int, device, dtype) -> torch.Tensor:
+    """jnp.linspace's arithmetic: start + i * step, exact endpoint."""
     step = (stop - start) / (n - 1) if n > 1 else 0.0
-    out = start + torch.arange(n, device=device, dtype=torch.float32) * step
+    out = start + torch.arange(n, device=device, dtype=dtype) * step
     out[-1] = stop
     return out
 
@@ -138,10 +169,10 @@ def bevwarp_grid(points, points_mask, lidar2img, img2lidar, lidar_aug, lidar_aug
     Returns (uv [B, V, hc, wc, 2], ok [B, V, hc, wc])."""
     hc, wc = feat_shape
     ih, iw = input_shape
-    dev = points.device
-    pcr = torch.tensor(pc_range, dtype=torch.float32, device=dev)
-    gx = _linspace(0.0, iw - 1.0, wc, dev)[None, :].expand(hc, wc)
-    gy = _linspace(0.0, ih - 1.0, hc, dev)[:, None].expand(hc, wc)
+    dev, dt = points.device, points.dtype
+    pcr = torch.tensor(pc_range, dtype=dt, device=dev)
+    gx = _linspace(0.0, iw - 1.0, wc, dev, dt)[None, :].expand(hc, wc)
+    gy = _linspace(0.0, ih - 1.0, hc, dev, dt)[:, None].expand(hc, wc)
     uvs, oks = [], []
     for b in range(points.shape[0]):
         raw = transform_points(lidar_aug_inv[b], points[b, :, :3])
@@ -157,7 +188,7 @@ def bevwarp_grid(points, points_mask, lidar2img, img2lidar, lidar_aug, lidar_aug
             cols.append(torch.where(ok, fx, torch.zeros_like(fx)))
             depths.append(torch.where(ok, depth, torch.full_like(depth, math.inf)))
         flat = (torch.cat(rows) * wc + torch.cat(cols))
-        dm = torch.full((v * (hc + 1) * wc,), math.inf, device=dev)
+        dm = torch.full((v * (hc + 1) * wc,), math.inf, dtype=dt, device=dev)
         # closest depth wins: deterministic whatever the write order
         dm = dm.scatter_reduce(0, flat, torch.cat(depths), reduce="amin")
         dms = dm.reshape(v, hc + 1, wc)[:, :hc]
@@ -200,19 +231,19 @@ class MMRIEncoderLayer(nn.Module):
         self.i_out_proj = ConvBNReLU(2 * c, c, 1, use_act=False)
         self.i_integration = ConvBNReLU(2 * c, c, 1, use_act=False)
 
-    def forward(self, img_feat, lidar_feat, batch, warp_grid, i2p_geom):
+    def forward(self, img_feat, lidar_feat, batch, warp_grid, i2p_geom, train: bool = False):
         b, v = img_feat.shape[:2]
-        i2p = self.i2p(lidar_feat, img_feat, batch["pillar_coords"], batch["pillar_valid"], i2p_geom)
-        p2p = self.p_iml(lidar_feat, lidar_feat)
-        p_aug = self.p_out_proj(torch.cat([i2p, p2p], -1))
-        new_lidar = self.p_integration(torch.cat([p_aug, lidar_feat], -1))
+        i2p = self.i2p(lidar_feat, img_feat, batch["pillar_coords"], batch["pillar_valid"], i2p_geom, train)
+        p2p = self.p_iml(lidar_feat, lidar_feat, train)
+        p_aug = self.p_out_proj(torch.cat([i2p, p2p], -1), train)
+        new_lidar = self.p_integration(torch.cat([p_aug, lidar_feat], -1), train)
 
         warped = bev_warp(lidar_feat, warp_grid)
         flat = img_feat.reshape(b * v, *img_feat.shape[2:])
-        p2i = self.p2i_local(flat, warped.reshape(b * v, *warped.shape[2:]))
-        i2i = self.i_iml(flat, flat)
-        i_aug = self.i_out_proj(torch.cat([p2i, i2i], -1))
-        new_img = self.i_integration(torch.cat([i_aug, flat], -1))
+        p2i = self.p2i_local(flat, warped.reshape(b * v, *warped.shape[2:]), train)
+        i2i = self.i_iml(flat, flat, train)
+        i_aug = self.i_out_proj(torch.cat([p2i, i2i], -1), train)
+        new_img = self.i_integration(torch.cat([i_aug, flat], -1), train)
         return new_img.reshape(b, v, *new_img.shape[1:]), new_lidar
 
 
@@ -232,22 +263,24 @@ class MMRIEncoder(nn.Module):
         for i in range(cfg.num_layers):
             self.add_module(f"layer{i}", MMRIEncoderLayer(cfg))
 
-    def forward(self, img_feats, pts_feats, batch: Dict[str, torch.Tensor]):
+    def forward(self, img_feats, pts_feats, batch: Dict[str, torch.Tensor], train: bool = False):
         b, v = img_feats.shape[:2]
         img = self.shared_conv_img(img_feats.reshape(b * v, *img_feats.shape[2:]))
         img = img.reshape(b, v, *img.shape[1:])
         pts = self.shared_conv_pts(pts_feats)
         pts_feat_conv = pts
-        # geometry depends only on points and calibration: once per forward
-        warp_grid = bevwarp_grid(
-            batch["points"], batch["points_mask"], batch["lidar2img"], batch["img2lidar"],
-            batch["lidar_aug"], batch["lidar_aug_inv"], img.shape[2:4], self.input_shape,
-            self.pc_range,
-        )
-        geom = i2p_geometry(
-            batch["pillars"], batch["pillar_counts"], batch["lidar2img"],
-            batch["lidar_aug_inv"], self.input_shape,
-        )
+        # geometry depends only on points and calibration: once per forward,
+        # with no gradient
+        with torch.no_grad():
+            warp_grid = bevwarp_grid(
+                batch["points"], batch["points_mask"], batch["lidar2img"], batch["img2lidar"],
+                batch["lidar_aug"], batch["lidar_aug_inv"], img.shape[2:4], self.input_shape,
+                self.pc_range,
+            )
+            geom = i2p_geometry(
+                batch["pillars"], batch["pillar_counts"], batch["lidar2img"],
+                batch["lidar_aug_inv"], self.input_shape,
+            )
         for i in range(self.num_layers):
-            img, pts = getattr(self, f"layer{i}")(img, pts, batch, warp_grid, geom)
+            img, pts = getattr(self, f"layer{i}")(img, pts, batch, warp_grid, geom, train)
         return img, (pts_feat_conv, pts)

@@ -1,7 +1,9 @@
 """ResNet image backbone (port of ``deepinteraction_tpu/models/resnet.py``;
 torchvision layout, stride on the 3x3 conv). NHWC in and out; the convs run
 on cuDNN/oneDNN through ``F.conv2d``, as the JAX package leaves them to
-XLA. Eval-only (BN on running statistics)."""
+XLA. ``train=True`` normalises with batch statistics (and updates the
+running ones); the detector asks for it only when
+``img_backbone.frozen_stages < 0``, as the JAX detector does."""
 
 from __future__ import annotations
 
@@ -26,10 +28,10 @@ class BasicBlock(nn.Module):
             self.downsample_conv = Conv2d(cin, features, 1, stride, 0, bias=False)
             self.downsample_bn = BatchNorm(features)
 
-    def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        idt = self.downsample_bn(self.downsample_conv(x)) if self.has_down else x
+    def forward(self, x, train: bool = False):
+        y = F.relu(self.bn1(self.conv1(x), train))
+        y = self.bn2(self.conv2(y), train)
+        idt = self.downsample_bn(self.downsample_conv(x), train) if self.has_down else x
         return F.relu(y + idt)
 
 
@@ -50,11 +52,11 @@ class Bottleneck(nn.Module):
             self.downsample_conv = Conv2d(cin, out, 1, stride, 0, bias=False)
             self.downsample_bn = BatchNorm(out)
 
-    def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        idt = self.downsample_bn(self.downsample_conv(x)) if self.has_down else x
+    def forward(self, x, train: bool = False):
+        y = F.relu(self.bn1(self.conv1(x), train))
+        y = F.relu(self.bn2(self.conv2(y), train))
+        y = self.bn3(self.conv3(y), train)
+        idt = self.downsample_bn(self.downsample_conv(x), train) if self.has_down else x
         return F.relu(y + idt)
 
 
@@ -83,13 +85,13 @@ class ResNet(nn.Module):
                 cin = w * block.expansion
         self.out_channels = tuple(w * block.expansion for w in WIDTHS)
 
-    def forward(self, x: torch.Tensor):
-        x = F.relu(self.bn1(self.conv1(x)))
+    def forward(self, x: torch.Tensor, train: bool = False):
+        x = F.relu(self.bn1(self.conv1(x), train))
         x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
         outs = []
         for i, n in enumerate(self.stage_blocks):
             for j in range(n):
-                x = getattr(self, f"layer{i + 1}_{j}")(x)
+                x = getattr(self, f"layer{i + 1}_{j}")(x, train)
             if i in self.out_indices:
                 outs.append(x)
         return outs

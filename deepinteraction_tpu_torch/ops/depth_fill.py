@@ -107,7 +107,7 @@ def fill_in_multiscale(depth: torch.Tensor, max_depth: float = 100.0) -> torch.T
     """Dense depth from sparse depth, [..., H, W] -> [..., H, W]
     (extrapolate=False, blur_type='bilateral', the reference's call-site
     settings)."""
-    d_in = depth.float()
+    d_in = depth if depth.is_floating_point() else depth.float()
     near = (d_in > 0.1) & (d_in <= 15.0)
     med = (d_in > 15.0) & (d_in <= 30.0)
     far = d_in > 30.0

@@ -17,8 +17,15 @@ note says what bounds it on the H100 and what its design does about it. It
 multiplies on the tensor cores in split TF32 (three TF32 products per fp32
 product), which keeps fp32 accuracy, so it agrees with the plain version to
 fp32 rounding (tolerance 2e-5 absolute and relative). It takes odd kernel
-sizes up to ``MAX_KERNEL`` (the model uses 5 and 9). The backward is not
-ported yet (ROADMAP queue 2, K2 backward).
+sizes up to ``MAX_KERNEL`` (the model uses 5 and 9).
+
+``local_attn_bwd(q, k, v, dout, kernel)`` is its backward, dq, dk and dv. On
+a CUDA tensor it launches the two passes of ``csrc/local_attention.cu``
+(fp32 on CUDA cores; the JAX package re-differentiates its XLA oracle,
+``local_attention_pallas.py::_bwd``); on a CPU tensor it runs autograd of
+:func:`local_attention`, its plain version. ``local_attn_fwd`` keeps q, k
+and v for it, so a train step through K2 runs both kernels. Against the
+plain version it agrees within 1e-4 of each output's scale.
 """
 
 from __future__ import annotations
@@ -83,17 +90,54 @@ def _launch(q, k, v, kernel):
     return out
 
 
+def local_attention_bwd(q, k, v, dout, kernel: int):
+    """Plain backward: autograd of :func:`local_attention` -> (dq, dk, dv)."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        return torch.autograd.grad(local_attention(*qkv, kernel), qkv, dout)
+
+
+def _launch_bwd(q, k, v, dout, kernel):
+    b, h, w, c = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    p, ds = (q.new_empty(b, h, w, kernel * kernel) for _ in range(2))  # P and dS scratch
+    code = cuda_lib.library().di_local_attn_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), p.data_ptr(), ds.data_ptr(), b, h, w, c, kernel, 1.0 / math.sqrt(c),
+        cuda_lib.stream_ptr(q.device),
+    )
+    cuda_lib.check(code, "local_attn_bwd")
+    local_attn_bwd.launches += 1
+    return dq, dk, dv
+
+
 class _LocalAttnFwd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, kernel):
+        ctx.kernel = kernel
+        ctx.save_for_backward(q, k, v)
         return _launch(q, k, v, kernel)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "local_attn_fwd has no backward kernel yet (ROADMAP queue 2, "
-            "K2 backward)"
-        )
+        q, k, v = ctx.saved_tensors
+        return (*local_attn_bwd(q, k, v, grad, ctx.kernel), None)
+
+
+def _check(name, tensors, kernel):
+    """Raise unless ``tensors`` are equal-shaped [B, H, W, C] float32 CUDA
+    tensors and ``kernel`` is a size the kernels take; returns them
+    contiguous."""
+    shapes = [tuple(t.shape) for t in tensors]
+    if len(set(shapes)) != 1 or len(shapes[0]) != 4:
+        raise ValueError(f"{name}: want equal [B, H, W, C] shapes, got {shapes}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{name}: want float32 tensors")
+    if kernel % 2 != 1 or not 1 <= kernel <= MAX_KERNEL:
+        raise ValueError(f"{name}: kernel must be odd and at most {MAX_KERNEL}, got {kernel}")
+    tensors = [t.contiguous() for t in tensors]
+    cuda_lib.require_cuda(name, *tensors)
+    return tensors
 
 
 def local_attn_fwd(
@@ -102,18 +146,18 @@ def local_attn_fwd(
     """K2 wrapper. q, k, v [B, H, W, C] f32 (NHWC) -> [B, H, W, C]."""
     if q.device.type == "cpu":
         return local_attention(q, k, v, kernel)
-    if not (q.shape == k.shape == v.shape) or q.dim() != 4:
-        raise ValueError(
-            f"local_attn_fwd: want equal [B, H, W, C] shapes, got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
-        )
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise TypeError("local_attn_fwd: want float32 q, k, v")
-    if kernel % 2 != 1 or not 1 <= kernel <= MAX_KERNEL:
-        raise ValueError(f"local_attn_fwd: kernel must be odd and at most {MAX_KERNEL}, got {kernel}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    cuda_lib.require_cuda("local_attn_fwd", q, k, v)
-    return _LocalAttnFwd.apply(q, k, v, kernel)
+    return _LocalAttnFwd.apply(*_check("local_attn_fwd", (q, k, v), kernel), kernel)
+
+
+def local_attn_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor, kernel: int
+):
+    """K2 backward wrapper. q, k, v and dO [B, H, W, C] f32 (NHWC) ->
+    (dq, dk, dv)."""
+    if q.device.type == "cpu":
+        return local_attention_bwd(q, k, v, dout, kernel)
+    return _launch_bwd(*_check("local_attn_bwd", (q, k, v, dout), kernel), kernel)
 
 
 local_attn_fwd.launches = 0
+local_attn_bwd.launches = 0

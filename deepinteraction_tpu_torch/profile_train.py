@@ -1,16 +1,19 @@
-"""Where the time of the LiDAR-only train step goes, on one NVIDIA GPU.
+"""Where the time of a train step goes, on one NVIDIA GPU.
 
-Builds ``lidar_only_config`` at full width with random seeded weights,
-takes ``--warmup`` steps on the B=2 synthetic batch, then reports:
+Builds ``--config`` (``lidar_only``, the default, or ``fusion_base``) at
+full width with random seeded weights, takes ``--warmup`` steps on the B=2
+synthetic batch, then reports:
 
 - host-clock splits of one step: each top-level module's forward, the
   matching and targets, the loss, the backward and the AdamW update, each
   fenced by ``torch.cuda.synchronize()`` (the fences add a little);
 - a ``torch.profiler`` window over ``--steps`` steps: device time per step,
   the device's busy share of the window, kernel launches and host syncs per
-  step, and the kernels with the most device time.
+  step, the device time of the port's kernels (K1 ``subm_conv``, K2
+  ``local_attn``) and the kernels with the most device time.
 
-Usage: ``python -m deepinteraction_tpu_torch.profile_train [--steps 3]``.
+Usage: ``python -m deepinteraction_tpu_torch.profile_train [--config
+fusion_base] [--steps 3]``.
 Prints one JSON object as its last line. Fails without a CUDA device.
 """
 
@@ -25,17 +28,24 @@ from collections import defaultdict
 
 import torch
 
-from .configs import lidar_only_config
+from .configs import fusion_base_config, lidar_only_config
 from .models.detector import DeepInteraction
 from .targets.assign import build_targets, detection_loss
 from .train.step import TrainStep, bev_shape
 from .utils.synthetic import init_weights, make_synthetic_batch, to_torch
 
-MODULES = ("pts_middle_encoder", "pts_backbone", "pts_neck", "shared_conv", "pts_bbox_head")
+CONFIGS = {"lidar_only": lidar_only_config, "fusion_base": fusion_base_config}
+# top-level modules timed by hooks, per config
+MODULES = {
+    "lidar_only": ("pts_middle_encoder", "pts_backbone", "pts_neck", "shared_conv", "pts_bbox_head"),
+    "fusion_base": ("img_backbone", "img_neck", "pts_middle_encoder", "pts_backbone", "pts_neck",
+                    "imgpts_neck", "pts_bbox_head"),
+}
 
 
-def timed_step(step: TrainStep, batch, seed: int) -> dict:
-    """One step with host-clock splits fenced by synchronize (ms)."""
+def timed_step(step: TrainStep, batch, seed: int, modules) -> dict:
+    """One step with host-clock splits fenced by synchronize (ms) around
+    each of ``modules``' forward and each phase of the step."""
     model, cfg = step.model, step.cfg
     marks = {}
 
@@ -52,7 +62,7 @@ def timed_step(step: TrainStep, batch, seed: int) -> dict:
         return hook
 
     handles = []
-    for name in MODULES:
+    for name in modules:
         mod = model.get_submodule(name)
         handles += [mod.register_forward_pre_hook(pre(name)), mod.register_forward_hook(post(name))]
     m = cfg.model
@@ -83,8 +93,8 @@ def timed_step(step: TrainStep, batch, seed: int) -> dict:
             h.remove()
     ms = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
     out = {"forward": ms[0]}
-    out.update({f"  {name}": marks[name] for name in MODULES})
-    out["  voxelize and the rest of the forward"] = ms[0] - sum(marks[n] for n in MODULES)
+    out.update({f"  {name}": marks[name] for name in modules})
+    out["  voxelize and the rest of the forward"] = ms[0] - sum(marks[n] for n in modules)
     out.update({"matching and targets": ms[1], "loss": ms[2], "backward": ms[3],
                 "grad norm, clip and AdamW": ms[4], "step": sum(ms)})
     return out
@@ -92,6 +102,7 @@ def timed_step(step: TrainStep, batch, seed: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", choices=sorted(CONFIGS), default="lidar_only")
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--splits", type=int, default=3, help="steps with host-clock splits (median)")
@@ -106,7 +117,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = True
 
-    cfg = lidar_only_config()
+    cfg = CONFIGS[args.config]()
     b = cfg.data.samples_per_device
     model = DeepInteraction(cfg.model, cfg.data.padded_img_shape)
     init_weights(model, seed=0)
@@ -114,8 +125,8 @@ def main() -> int:
     batch = to_torch(make_synthetic_batch(cfg, b=b, seed=0, with_gt=True), dev)
     for i in range(args.warmup):
         step(batch, torch.Generator(device=dev).manual_seed(i))
-
-    runs = [timed_step(step, batch, 100 + i) for i in range(args.splits)]
+    torch.cuda.reset_peak_memory_stats(dev)  # cuDNN's autotuning workspaces stay out
+    runs = [timed_step(step, batch, 100 + i, MODULES[args.config]) for i in range(args.splits)]
     splits = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
     for k, v in splits.items():
         print(f"{k:40s} {v:9.3f} ms", flush=True)
@@ -141,10 +152,10 @@ def main() -> int:
             kernels[ev.name] += dt
             device_us += dt
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
-    k1 = {k: v for k, v in kernels.items() if "subm_conv" in k or "sum_partials" in k}
+    ours = {k: v for k, v in kernels.items() if "subm_conv" in k or "sum_partials" in k or "local_attn" in k}
     summary = {
         "card": smi,
-        "config": "lidar_only_config, B=%d, train step" % b,
+        "config": f"{args.config}_config, B={b}, train step",
         "splits_ms": splits,
         "profiled_steps": n,
         "window_ms_per_step": window_ms / n,
@@ -153,7 +164,8 @@ def main() -> int:
         "kernel_launches_per_step": calls.get("cudaLaunchKernel", 0) / n,
         "stream_syncs_per_step": calls.get("cudaStreamSynchronize", 0) / n,
         "memcpy_per_step": calls.get("cudaMemcpyAsync", 0) / n,
-        "k1_device_ms_per_step": {k: v / 1e3 / n for k, v in k1.items()},
+        "kernel_device_ms_per_step": {k: v / 1e3 / n for k, v in ours.items()},
+        "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
         "top_kernels_ms_per_step": [[k[:90], v / 1e3 / n] for k, v in top],
     }
     print(json.dumps(summary), flush=True)

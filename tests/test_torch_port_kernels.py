@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1 subm_conv_gemm with its backward, d/dfeat
-over the inverse table and subm_conv_wgrad; K2 local_attn_fwd) against
-their plain PyTorch versions, on the card, alone and inside the tiny slice.
+over the inverse table and subm_conv_wgrad; K2 local_attn_fwd and its
+backward local_attn_bwd) against their plain PyTorch versions, on the card,
+alone and inside the tiny slice.
 
 Marked ``gpu``: each test skips where ``torch.cuda.is_available()`` is false
 (the decision is taken inside the fixture, never at import). On a machine
@@ -28,6 +29,9 @@ pytestmark = pytest.mark.gpu
 K1_TOL = 1e-4
 # K2 keeps fp32 accuracy throughout (split TF32 products, fp32 softmax)
 K2_TOL = 2e-5
+# K2's backward is fp32 on CUDA cores; its sums run in another order than
+# autograd's, so each of dq, dk, dv is held to 1e-4 of its scale, as K1's
+K2_BWD_TOL = 1e-4
 
 
 @pytest.fixture
@@ -163,14 +167,48 @@ def test_wrappers_reject_bad_inputs(cuda):
         la.local_attn_fwd(q, q, q, 4)
     with pytest.raises(ValueError):
         la.local_attn_fwd(q, q, q, la.MAX_KERNEL + 2)
+    with pytest.raises(ValueError):
+        la.local_attn_bwd(q, q, q, q[:, :3], 3)
+    with pytest.raises(RuntimeError):
+        la.local_attn_bwd(q, q, q, q.cpu(), 3)
+
+
+@pytest.mark.parametrize(
+    "shape,kernel",
+    [
+        ((12, 112, 200, 128), 9),  # p2i_local / i_iml image maps of a B=2 train step
+        ((2, 180, 180, 128), 9),  # p_iml BEV maps
+        ((2, 13, 21, 128), 1),
+        ((2, 13, 21, 64), 3),
+        ((1, 17, 30, 40), 5),  # channels not a multiple of 128
+        ((1, 9, 11, 6), 3),  # channels not a multiple of 4: 4-byte loads
+        ((1, 3, 40, 32), 9),  # a map shorter than the window
+        ((2, 30, 4, 32), 9),  # a map narrower than the window
+        ((1, 2, 2, 16), 5),
+    ],
+)
+def test_local_attn_bwd_matches_plain(cuda, shape, kernel):
+    """dq, dk, dv of the kernel against autograd of the plain version, and
+    through ``local_attn_fwd``'s autograd (one backward launch)."""
+    g = torch.Generator(device="cpu").manual_seed(sum(shape) * kernel)
+    q, k, v, dout = (torch.randn(shape, generator=g).to(cuda) for _ in range(4))
+    want = la.local_attention_bwd(q, k, v, dout, kernel)
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = la.local_attn_bwd.launches
+    la.local_attn_fwd(*qkv, kernel).backward(dout)
+    got = la.local_attn_bwd(q, k, v, dout, kernel)
+    torch.cuda.synchronize()
+    assert la.local_attn_bwd.launches == before + 2
+    for name, a, through_fwd, ref in zip("qkv", got, qkv, want):
+        scale = ref.abs().max().item()
+        assert torch.equal(a, through_fwd.grad), name
+        err = (a - ref).abs().max().item()
+        assert err <= K2_BWD_TOL * scale, f"d{name}: {err:.3e} of scale {scale:.3e}"
 
 
 def test_backward_not_ported(cuda):
-    """K2's backward is not ported yet; K1's needs the inverse table."""
-    q = torch.randn(1, 4, 4, 32, device=cuda, requires_grad=True)
-    out = la.local_attn_fwd(q, q.detach(), q.detach(), 3)
-    with pytest.raises(NotImplementedError):
-        out.sum().backward()
+    """K1's backward needs the inverse table (K2's backward is ported:
+    ``test_local_attn_bwd_matches_plain``)."""
     f = torch.randn(4, 8, device=cuda, requires_grad=True)
     nbr = torch.full((4, 27), 4, dtype=torch.int32, device=cuda)
     w = torch.randn(27, 8, 8, device=cuda)

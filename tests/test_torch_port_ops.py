@@ -7,6 +7,10 @@ made from numpy seeds.
   2e-2, as tests/test_sparse_conv_banded.py holds it);
 - K2's plain version vs the XLA formulation (2e-5) and vs the Pallas kernel
   in interpret mode (bf16 3e-2, as tests/test_local_attention_pallas.py);
+- K2's plain backward (autograd of the plain version, which the
+  ``local_attn_bwd`` wrapper runs on the CPU) vs ``jax.vjp`` of the XLA
+  oracle and of ``local_attention_fused`` in interpret mode (1e-5 of each
+  gradient's scale);
 - the K1/K2 wrappers take their plain version for CPU tensors;
 - depth fill, grid sampling and ROIAlign (1e-5).
 """
@@ -17,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from deepinteraction_tpu.ops import depth_fill as jdf
@@ -24,7 +29,7 @@ from deepinteraction_tpu.ops import local_attention as jla
 from deepinteraction_tpu.ops import roi_align as jra
 from deepinteraction_tpu.ops import sparse_conv as jsc
 from deepinteraction_tpu.ops import sparse_conv_banded as jscb
-from deepinteraction_tpu.ops.local_attention_pallas import _pallas_forward
+from deepinteraction_tpu.ops.local_attention_pallas import _pallas_forward, local_attention_fused
 from deepinteraction_tpu.utils import geometry as jgeo
 from deepinteraction_tpu_torch.ops import depth_fill as tdf
 from deepinteraction_tpu_torch.ops import local_attention as tla
@@ -127,6 +132,27 @@ def test_local_attention_vs_xla_and_pallas(shape, kernel):
     if shape[-1] == 128 and kernel // 2 <= 8:
         pal = np.asarray(_pallas_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kernel, interpret=True))
         np.testing.assert_allclose(got, pal, atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("shape,kernel", [
+    ((2, 9, 12, 32), 5), ((1, 11, 13, 16), 9), ((1, 3, 14, 8), 5),  # 3 rows: shorter than k
+    ((2, 12, 4, 8), 9),  # 4 columns: narrower than k
+])
+def test_local_attention_backward_vs_jax_vjp(shape, kernel):
+    rng = np.random.default_rng(sum(shape) + kernel)
+    q, k, v, g = (rng.normal(size=shape).astype(np.float32) for _ in range(4))
+    got = tla.local_attn_bwd(_t(q), _t(k), _t(v), _t(g), kernel)
+    qkv = [_t(a).requires_grad_(True) for a in (q, k, v)]
+    tla.local_attn_fwd(*qkv, kernel).backward(_t(g))
+    for a, b in zip(got, qkv):
+        assert torch.equal(a, b.grad)
+    jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+    for fn in (jla.local_attention, local_attention_fused):
+        _, vjp = jax.vjp(lambda a, b, c, fn=fn: fn(a, b, c, kernel), jq, jk, jv)
+        for name, a, want in zip("qkv", got, vjp(jg)):
+            want = np.asarray(want)
+            np.testing.assert_allclose(a.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max(),
+                                       err_msg=f"d{name} vs {fn.__name__}")
 
 
 def test_depth_fill_matches_jax():
