@@ -57,16 +57,19 @@ blocks trained), through K1's forward and K2's forward and backward:
     the card replaying the CPU run's ReLU masks and sort orders for the
     gradients, at the fusion tolerances (FUSION_*);
 13. full width, B=2: one train step with the launch counters set to 0 just
-    before and read just after; every trainable gradient leaf against a
-    step with K2's forward and backward swapped for the plain version on
-    the same matching, ReLU masks, sort orders and dropout seed; then
-    ms/step (2 warm-ups, 5 timed) and peak memory.
+    before and read just after; the same step again from the same weights
+    and seed, logging whether every trainable gradient leaf came out with
+    the same bits (``F.grid_sample``'s backward sums with atomics) and, if
+    not, the largest difference over a leaf's scale; every trainable
+    gradient leaf against a step with K2's forward and backward swapped for
+    the plain version on the same matching, ReLU masks, sort orders and
+    dropout seed; then ms/step (2 warm-ups, 5 timed) and peak memory.
 
 A bound is the larger of the bytes (each input read once, each output
 written once) over 3.35 TB/s and the useful operations over the peak rate
 of the units the kernel multiplies on: TF32 tensor cores for K1's forward,
-d/dfeat and K2's forward (split TF32), fp32 CUDA cores for d/dW and K2's
-backward. The line before the
+d/dfeat and both K2 kernels (split TF32), fp32 CUDA cores for d/dW. The
+line before the
 last is the kernels' JSON record, each kernel with its numbers at one
 main-path shape and at every shape it was timed at; the last line is
 ``{"ok": true, "device": {...}}``. Usage: ``python3 chip_smoke.py``.
@@ -663,9 +666,10 @@ def check_k2_backward(dev, gen):
             msg.append(f"d{name} max_abs_err={err:.3e} max_rel_err={rel:.3e}")
         b, h, w, c = shape
         # q, k, v, dO read and dq, dk, dv written once; per pixel 81 taps x
-        # (q.k, dO.v, dS k, dS q, P dO), 2 C operations each, on CUDA cores
+        # (q.k, dO.v, dS k, dS q, P dO), 2 C operations each, on the TF32
+        # tensor cores (split TF32)
         t = timing(lambda: la.local_attn_bwd(q, k, v, dout, 9), lambda: la.local_attention_bwd(q, k, v, dout, 9),
-                   bound(7 * 4 * b * h * w * c, b * h * w * 10 * 81 * c, "fp32"), n)
+                   bound(7 * 4 * b * h * w * c, b * h * w * 10 * 81 * c, "tf32"), n)
         log(f"K2 local_attn_bwd {list(shape)} k=9: {' '.join(msg)} {timing_text(t)}")
         rec["shapes"].append(dict(t, shape=f"{list(shape)} k=9"))
         per_step += t["launch_ms"]
@@ -709,6 +713,27 @@ def run_fusion_train(dev, gen):
     assert not any(n.startswith(("img_backbone.", "pts_middle_encoder.", "pts_backbone.")) for n in grads)
     log("fusion_base train step: " + " ".join(f"{k}={v.item():.6g}" for k, v in metrics.items())
         + f"; {len(grads)} trainable of {len(list(model.parameters()))} parameters have finite gradients")
+
+    # the whole step again (matching included) from the same weights and
+    # seed: logged, not asserted, since F.grid_sample's backward sums with
+    # atomics (the port's own kernels add in a fixed order). Leaves below
+    # FUSION_GRAD_NOISE of the largest are 0 in exact arithmetic: their
+    # differences are given over the largest leaf's scale
+    model.load_state_dict(start)
+    _, _, again = step_grads(step, batch, seed=1)
+    largest = max(g.abs().max().item() for g in grads.values())
+    line = FUSION_GRAD_NOISE * largest
+    moved = [n for n, g in grads.items() if not torch.equal(again[n], g)]
+    real = sorted(((rel_err(again[n], grads[n])[1], n) for n in moved if grads[n].abs().max().item() >= line),
+                  reverse=True)
+    noise = max([(again[n] - grads[n]).abs().max().item() / largest for n in moved
+                 if grads[n].abs().max().item() < line], default=0.0)
+    log(f"fusion_base train step run twice from one seed: {len(grads) - len(moved)} of {len(grads)} trainable "
+        f"gradient leaves bit-equal; {len(real)} leaves above {FUSION_GRAD_NOISE:g} of the largest differ, by at "
+        f"most {real[0][0] if real else 0.0:.3e} of their scale ("
+        + ", ".join(f"{n} {r:.3e}" for r, n in real[:3]) + f"); {len(moved) - len(real)} leaves that are ~0 "
+        f"differ by at most {noise:.3e} of the largest leaf's scale")
+    del again
 
     # K2's forward and backward swapped for the plain version (K1 stays),
     # from the same weights, statistics, dropout seed and matching; the

@@ -313,208 +313,417 @@ extern "C" int di_local_attn_fwd(const void* q, const void* k, const void* v,
   }
 }
 
+
 // ---------------------------------------------------------------------------
 // Backward: dq, dk, dv of the forward above, given dO.
 //
-// The JAX package has no backward kernel: its custom VJP re-differentiates
-// the XLA oracle (deepinteraction_tpu/ops/local_attention_pallas.py::_bwd,
-// :162-165). With S_t = q . k_t / sqrt(C) over the k*k taps t, P = softmax(S),
+// Replaces the custom VJP of deepinteraction_tpu/ops/local_attention_pallas.py
+// (_bwd, :162-165), which differentiates the XLA form
+// deepinteraction_tpu/ops/local_attention.py::local_attention. With
+// S_t = q . k_t / sqrt(C) over the k*k taps t, P = softmax(S),
 // dP_t = dO . v_t and D = sum_t P_t dP_t:
 //
 //   dS_t = P_t (dP_t - D) / sqrt(C),  dq = sum_t dS_t k_t,
 //   dk_j = sum_t dS[j - off_t, t] q[j - off_t],  dv_j = sum_t P[j - off_t, t] dO[j - off_t]
 //
 // A tap outside the map is a zero key (S_t = 0, still in the softmax) and a
-// zero value (dP_t = 0); it passes no gradient anywhere.
+// zero value (dP_t = 0). A query outside the map does not exist: it gives
+// nothing to dk or dv.
 //
-// Bound on the H100 at the main-path shapes: the useful operations are
-// 10 k^2 C per pixel (S, dP, dq, dk, dv: 2 k^2 C each) against the bytes of
-// q, k, v, dO read once and dq, dk, dv written once; on fp32 CUDA cores
-// (67 TFLOP/s) the operations bind ([12,112,200,128], k = 9: 27.9 GFLOP,
-// 0.416 ms, against 963 MB, 0.288 ms).
+// Bound on the H100: 7 fp32 maps (q, k, v, dO read, dq, dk, dv written) once
+// over 3.35 TB/s, against 10 k^2 C operations a pixel (S, dP, dq, dk, dv) over
+// the TF32 tensor cores' 495 TFLOP/s. At [12,112,200,128], k = 9, that is
+// 963 MB in 0.2876 ms against 0.0563 ms of operations, so the bytes bind;
+// 0.0693 ms at [2,180,180,128].
 //
-// Design: simple, deterministic, no atomics. Two passes, a warp per pixel,
-// each lane holding 4 consecutive channels (one 16-byte load per row):
-//   pass A, per query pixel: the k^2 logits and dP_t by warp reductions into
-//     shared memory, the softmax and D across the warp's lanes, then dq; P and
-//     dS go to a [B, H, W, k^2] fp32 scratch;
-//   pass B, per key pixel j: gathers over the k^2 queries whose window holds
-//     j (P and dS are one broadcast load each) for dk and dv.
-// The k^2 rows a warp reads overlap its neighbours' and come from L1/L2.
+// Design: the forward's tiling twice, every product block-dense on the tensor
+// cores in split TF32, no atomics, so a call gives the same bits every time.
+//   Pass A (local_attn_bwd_query_kernel), per 4 x 16 query tile, three sweeps
+//   over the 16-channel slabs: S_r = Q K_r^T into the register band as in the
+//   forward, and the softmax on it; P goes to a thread-private band in shared
+//   memory, and dP_r = dO V_r^T accumulates in the same registers; then
+//   D = sum P dP by rows (quad shuffles) and dS = P (dP - D) / sqrt(C) in
+//   place; last dq += dS_r K_r, the forward's P V. It writes dq, and the
+//   log-sum-exp and D of each query ([B, H, W] fp32 each). D comes from the
+//   two bands, so no product is spent on O = P V, and the dP band is never
+//   held in registers beside P.
+//   Pass B (local_attn_bwd_key_kernel), per 4 x 16 key tile, the same tiling
+//   mirrored: the halo holds the queries i = j - off_t around key j. Key j
+//   and query i pair iff they are at most R apart in rows and in columns,
+//   which is the forward's band test with the roles swapped. Four sweeps:
+//   S^T_r = K Q_r^T, P^T = exp(S^T / sqrt(C) - LSE_i) (0 for a query outside
+//   the map, whose LSE reads +inf); dv += P^T_r dO_r; P^T to the shared band
+//   and dP^T_r = V dO_r^T into the registers, dS^T = P^T (dP^T - D_i) / sqrt(C);
+//   dk += dS^T_r Q_r. Each key's sums stay in its block.
+// Seven band products against the bound's five: S and dP are taken in both
+// passes, in place of a [B, H, W, k^2] P and dS in device memory. Each halo
+// slab is staged by cp.async at the pitch its product reads without bank
+// conflicts (kQKPitch as the B of S or dP, kVPitch as the B of dq, dv or
+// dk), so pass B stages dO twice. The P band (40 KB at k = 9) beside the two
+// stages (66 KB) lets 2 blocks share an SM.
 // ---------------------------------------------------------------------------
 
 namespace {
 
-constexpr int kBwdWarps = 8;
-constexpr int kMaxTaps = kMaxKernel * kMaxKernel;
-
-__device__ __forceinline__ float warp_sum(float x) {
+// f(r, nt, e, in) for every element s[r][nt][e] of the lane's band; `in`: the
+// pair is inside the window (halo columns g .. g + KS - 1 of the warp, halo
+// rows e / 2 .. e / 2 + KS - 1)
+template <int KS, class F>
+__device__ __forceinline__ void for_band(int g, int t, F f) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
+  for (int r = 0; r < Geo<KS>::NH; ++r)
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = nt * 8 + 2 * t + (e & 1) - g;
+        const int dy = r - (e >> 1);
+        f(r, nt, e, d >= 0 && d < KS && dy >= 0 && dy < KS);
+      }
 }
 
-template <int VEC>
-struct Vec;
-template <>
-struct Vec<4> {
-  using T = float4;
-  __device__ static T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-  __device__ static float dot(T a, T b) { return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w; }
-  __device__ static void axpy(T& acc, float s, T x) {
-    acc.x += s * x.x; acc.y += s * x.y; acc.z += s * x.z; acc.w += s * x.w;
-  }
-};
-template <>
-struct Vec<1> {
-  using T = float;
-  __device__ static T zero() { return 0.f; }
-  __device__ static float dot(T a, T b) { return a * b; }
-  __device__ static void axpy(T& acc, float s, T x) { acc += s * x; }
-};
-
-template <int VEC>
-__device__ __forceinline__ typename Vec<VEC>::T ld(const float* p) {
-  return *reinterpret_cast<const typename Vec<VEC>::T*>(p);
+// offset of s[r][nt][e] in a thread-private band in shared memory (a warp's
+// 32 lanes on 32 banks)
+__device__ __forceinline__ int band_at(int r, int nt, int e) {
+  return ((r * 2 + nt) * 4 + e) * kThreads;
 }
 
-template <int VEC>
-__device__ __forceinline__ void st(float* p, typename Vec<VEC>::T x) {
-  *reinterpret_cast<typename Vec<VEC>::T*>(p) = x;
-}
-
-// pass A: one warp per query pixel
-template <int VEC>
-__global__ void __launch_bounds__(kBwdWarps * 32)
-    local_attn_bwd_query_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                const float* __restrict__ v, const float* __restrict__ dout,
-                                float* __restrict__ dq, float* __restrict__ pbuf,
-                                float* __restrict__ dsbuf, int64_t npix, int h, int w, int c,
-                                int ks, float scale) {
-  using V = Vec<VEC>;
-  __shared__ float sm[kBwdWarps][2][kMaxTaps];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int64_t pix = (int64_t)blockIdx.x * kBwdWarps + warp;
-  if (pix >= npix) return;  // the whole warp; the kernel has no block barrier
-  const int x = (int)(pix % w);
-  const int y = (int)((pix / w) % h);
-  const int64_t img = pix - (int64_t)y * w - x;
-  const int r = ks / 2, taps = ks * ks;
-  float* s = sm[warp][0];   // logits, then P
-  float* dp = sm[warp][1];  // dP, then dS
-  const float* qp = q + pix * c;
-  const float* gp = dout + pix * c;
-
-  for (int t = 0; t < taps; ++t) {
-    const int yy = y + t / ks - r, xx = x + t % ks - r;
-    float a = 0.f, d = 0.f;
-    if (yy >= 0 && yy < h && xx >= 0 && xx < w) {  // the same for the whole warp
-      const int64_t j = (img + (int64_t)yy * w + xx) * c;
-      for (int cc = lane * VEC; cc < c; cc += 32 * VEC) {
-        a += V::dot(ld<VEC>(qp + cc), ld<VEC>(k + j + cc));
-        d += V::dot(ld<VEC>(gp + cc), ld<VEC>(v + j + cc));
+// s[r][nt] += A B_r^T over one staged slab: A the warp's two tile rows, B_r
+// halo row 2 pr + r, both at kQKPitch (the forward's Q K^T). MIRROR takes the
+// split's two cross terms in the other order (hi_a lo_b first), so that pass
+// B's K Q^T and V dO^T sum the same products in the same order as pass A's
+// Q K^T and dO V^T and give the same bits: with k = 1, P = 1 and dS = 0
+// exactly, as in the plain version.
+template <int KS, bool MIRROR>
+__device__ __forceinline__ void band_dot(float (&s)[Geo<KS>::NH][2][4], const float* buf, int pr,
+                                         int cw, int g, int t) {
+  const float* a0 = buf + Geo<KS>::HALO + (2 * pr * kTW + 8 * cw + g) * kQKPitch + 2 * t;
+  const float* b0 = buf + (8 * cw + g) * kQKPitch + 2 * t;
+#pragma unroll
+  for (int kk = 0; kk < kCS; kk += 8) {
+    uint32_t ah[4], al[4];
+    const float2 aa = *reinterpret_cast<const float2*>(a0 + kk);
+    const float2 ab = *reinterpret_cast<const float2*>(a0 + kTW * kQKPitch + kk);
+    di::split_tf32(aa.x, ah[0], al[0]);
+    di::split_tf32(ab.x, ah[1], al[1]);
+    di::split_tf32(aa.y, ah[2], al[2]);
+    di::split_tf32(ab.y, ah[3], al[3]);
+#pragma unroll
+    for (int r = 0; r < Geo<KS>::NH; ++r) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float2 bb = *reinterpret_cast<const float2*>(
+            b0 + ((2 * pr + r) * kNCol + nt * 8) * kQKPitch + kk);
+        uint32_t bh[2], bl[2];
+        di::split_tf32(bb.x, bh[0], bl[0]);
+        di::split_tf32(bb.y, bh[1], bl[1]);
+        if (MIRROR) {
+          di::mma_tf32(s[r][nt], ah, bl);
+          di::mma_tf32(s[r][nt], al, bh);
+          di::mma_tf32(s[r][nt], ah, bh);
+        } else {
+          di::mma_split(s[r][nt], ah, al, bh, bl);
+        }
       }
     }
-    a = warp_sum(a);
-    d = warp_sum(d);
-    if (lane == 0) {
-      s[t] = a * scale;
-      dp[t] = d;
-    }
-  }
-  __syncwarp();
-  float m = -INFINITY;
-  for (int t = lane; t < taps; t += 32) m = fmaxf(m, s[t]);
-  m = warp_max(m);
-  float l = 0.f;
-  for (int t = lane; t < taps; t += 32) l += expf(s[t] - m);
-  const float inv = 1.f / warp_sum(l);
-  float dsum = 0.f;
-  for (int t = lane; t < taps; t += 32) {
-    const float p = expf(s[t] - m) * inv;
-    s[t] = p;
-    dsum += p * dp[t];
-  }
-  dsum = warp_sum(dsum);
-  for (int t = lane; t < taps; t += 32) {
-    const float ds = s[t] * (dp[t] - dsum) * scale;
-    dp[t] = ds;
-    pbuf[pix * taps + t] = s[t];
-    dsbuf[pix * taps + t] = ds;
-  }
-  __syncwarp();
-  for (int cc = lane * VEC; cc < c; cc += 32 * VEC) {
-    typename V::T acc = V::zero();
-    for (int t = 0; t < taps; ++t) {
-      const int yy = y + t / ks - r, xx = x + t % ks - r;
-      if (yy >= 0 && yy < h && xx >= 0 && xx < w)
-        V::axpy(acc, dp[t], ld<VEC>(k + (img + (int64_t)yy * w + xx) * c + cc));
-    }
-    st<VEC>(dq + pix * c + cc, acc);
   }
 }
 
-// pass B: one warp per key pixel j; query j - off_t reads j at its tap t
+// o = sum_r s_r X_r over one staged slab of the halo X at kVPitch (the
+// forward's P V, with its column permutation)
+template <int KS>
+__device__ __forceinline__ void band_apply(float (&o)[kCS / 8][4],
+                                           const float (&s)[Geo<KS>::NH][2][4], const float* buf,
+                                           int pr, int cw, int g, int t) {
+#pragma unroll
+  for (int cn = 0; cn < kCS / 8; ++cn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[cn][e] = 0.f;
+  const float* x0 = buf + (8 * cw + 2 * t) * kVPitch + g;
+#pragma unroll
+  for (int r = 0; r < Geo<KS>::NH; ++r) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      uint32_t ah[4], al[4];
+      di::split_tf32(s[r][nt][0], ah[0], al[0]);
+      di::split_tf32(s[r][nt][2], ah[1], al[1]);
+      di::split_tf32(s[r][nt][1], ah[2], al[2]);
+      di::split_tf32(s[r][nt][3], ah[3], al[3]);
+      const float* xp = x0 + ((2 * pr + r) * kNCol + nt * 8) * kVPitch;
+#pragma unroll
+      for (int cn = 0; cn < kCS / 8; ++cn) {
+        uint32_t bh[2], bl[2];
+        di::split_tf32(xp[cn * 8], bh[0], bl[0]);
+        di::split_tf32(xp[kVPitch + cn * 8], bh[1], bl[1]);
+        di::mma_split(o[cn], ah, al, bh, bl);
+      }
+    }
+  }
+}
+
+// channels c0 .. c0 + 15 of the lane's pixels (y, x) and (y + 1, x) from o;
+// pixels outside the map are skipped
 template <int VEC>
-__global__ void __launch_bounds__(kBwdWarps * 32)
-    local_attn_bwd_key_kernel(const float* __restrict__ q, const float* __restrict__ dout,
-                              const float* __restrict__ pbuf, const float* __restrict__ dsbuf,
-                              float* __restrict__ dk, float* __restrict__ dv, int64_t npix, int h,
-                              int w, int c, int ks) {
-  using V = Vec<VEC>;
+__device__ __forceinline__ void store_slab(float* __restrict__ out, const float (&o)[kCS / 8][4],
+                                           int64_t img, int h, int w, int c, int c0, int y, int x,
+                                           int t) {
+  if (x >= w) return;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (y + half >= h) continue;
+    float* po = out + (img + (int64_t)(y + half) * w + x) * c + c0 + 2 * t;
+#pragma unroll
+    for (int cn = 0; cn < kCS / 8; ++cn) {
+      const int ch = c0 + cn * 8 + 2 * t;
+      const float a = o[cn][2 * half], b = o[cn][2 * half + 1];
+      if (VEC == 4 && ch + 1 < c) {
+        *reinterpret_cast<float2*>(po + cn * 8) = make_float2(a, b);
+      } else {
+        if (ch < c) po[cn * 8] = a;
+        if (ch + 1 < c) po[cn * 8 + 1] = b;
+      }
+    }
+  }
+}
+
+// pass A: dq, and each query's log-sum-exp and D
+template <int KS, int VEC>
+__global__ void __launch_bounds__(kThreads, 2)
+    local_attn_bwd_query_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ dout,
+                                float* __restrict__ dq, float* __restrict__ lse,
+                                float* __restrict__ dsum, int h, int w, int c, float scale) {
+  using G = Geo<KS>;
+  constexpr int NH = G::NH;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* band = smem + 2 * G::STAGE + threadIdx.x;  // see band_at
+
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int64_t pix = (int64_t)blockIdx.x * kBwdWarps + warp;
-  if (pix >= npix) return;
-  const int x = (int)(pix % w);
-  const int y = (int)((pix / w) % h);
-  const int64_t img = pix - (int64_t)y * w - x;
-  const int r = ks / 2, taps = ks * ks;
-  for (int cc = lane * VEC; cc < c; cc += 32 * VEC) {
-    typename V::T ak = V::zero(), av = V::zero();
-    for (int t = 0; t < taps; ++t) {
-      const int yy = y - (t / ks - r), xx = x - (t % ks - r);
-      if (yy < 0 || yy >= h || xx < 0 || xx >= w) continue;
-      const int64_t i = img + (int64_t)yy * w + xx;
-      V::axpy(ak, dsbuf[i * taps + t], ld<VEC>(q + i * c + cc));
-      V::axpy(av, pbuf[i * taps + t], ld<VEC>(dout + i * c + cc));
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int pr = warp / 2;
+  const int cw = warp % 2;
+  const int y0 = blockIdx.y * kTH;
+  const int x0 = blockIdx.x * kTW;
+  const int64_t img = (int64_t)blockIdx.z * h * w;
+  const int nslab = (c + kCS - 1) / kCS;
+  const int y = y0 + 2 * pr, x = x0 + 8 * cw + g;  // the lane's queries: (y, x), (y + 1, x)
+
+  float s[NH][2][4];
+  for_band<KS>(g, t, [&](int r, int nt, int e, bool) { s[r][nt][e] = 0.f; });
+
+  // sweep 0 stages q and k (S), 1 dO and v (dP), 2 k at the P V pitch (dq)
+  auto issue = [&](int st) {
+    float* buf = smem + (st & 1) * G::STAGE;
+    const int sweep = st / nslab, c0 = (st % nslab) * kCS;
+    if (sweep == 0) load_slab<KS, VEC>(buf, k, q, kQKPitch, img, h, w, c, c0, y0, x0);
+    else if (sweep == 1) load_slab<KS, VEC>(buf, v, dout, kQKPitch, img, h, w, c, c0, y0, x0);
+    else load_slab<KS, VEC>(buf, k, nullptr, kVPitch, img, h, w, c, c0, y0, x0);
+  };
+  issue(0);
+  di::cp_async_commit();
+  for (int st = 0; st < 3 * nslab; ++st) {
+    if (st + 1 < 3 * nslab) issue(st + 1);
+    di::cp_async_commit();
+    di::cp_async_wait<1>();
+    __syncthreads();
+    const float* buf = smem + (st & 1) * G::STAGE;
+    if (st < 2 * nslab) {
+      band_dot<KS, false>(s, buf, pr, cw, g, t);
+      if (st == nslab - 1) {
+        // softmax over the band (rows e < 2: query (y, x), e >= 2: (y + 1, x));
+        // P to the shared band, the registers cleared for dP
+        float m0 = -INFINITY, m1 = -INFINITY;
+        for_band<KS>(g, t, [&](int r, int nt, int e, bool in) {
+          const float z = s[r][nt][e] * scale;
+          s[r][nt][e] = z;
+          if (in) {
+            if (e < 2) m0 = fmaxf(m0, z);
+            else m1 = fmaxf(m1, z);
+          }
+        });
+        m0 = quad_max(m0);
+        m1 = quad_max(m1);
+        float l0 = 0.f, l1 = 0.f;
+        for_band<KS>(g, t, [&](int r, int nt, int e, bool in) {
+          const float p = in ? expf(s[r][nt][e] - (e < 2 ? m0 : m1)) : 0.f;
+          s[r][nt][e] = p;
+          if (e < 2) l0 += p;
+          else l1 += p;
+        });
+        l0 = quad_sum(l0);
+        l1 = quad_sum(l1);
+        const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+        for_band<KS>(g, t, [&](int r, int nt, int e, bool) {
+          band[band_at(r, nt, e)] = s[r][nt][e] * (e < 2 ? inv0 : inv1);
+          s[r][nt][e] = 0.f;
+        });
+        if (t == 0 && x < w) {
+          if (y < h) lse[img + (int64_t)y * w + x] = m0 + logf(l0);
+          if (y + 1 < h) lse[img + (int64_t)(y + 1) * w + x] = m1 + logf(l1);
+        }
+      } else if (st == 2 * nslab - 1) {
+        // D = sum_t P_t dP_t by rows, then dS = P (dP - D) / sqrt(C) in place
+        float a0 = 0.f, a1 = 0.f;
+        for_band<KS>(g, t, [&](int r, int nt, int e, bool) {
+          const float pd = band[band_at(r, nt, e)] * s[r][nt][e];
+          if (e < 2) a0 += pd;
+          else a1 += pd;
+        });
+        const float d0 = quad_sum(a0), d1 = quad_sum(a1);
+        for_band<KS>(g, t, [&](int r, int nt, int e, bool) {
+          s[r][nt][e] = band[band_at(r, nt, e)] * (s[r][nt][e] - (e < 2 ? d0 : d1)) * scale;
+        });
+        if (t == 0 && x < w) {
+          if (y < h) dsum[img + (int64_t)y * w + x] = d0;
+          if (y + 1 < h) dsum[img + (int64_t)(y + 1) * w + x] = d1;
+        }
+      }
+    } else {
+      float o[kCS / 8][4];
+      band_apply<KS>(o, s, buf, pr, cw, g, t);
+      store_slab<VEC>(dq, o, img, h, w, c, (st - 2 * nslab) * kCS, y, x, t);
     }
-    st<VEC>(dk + pix * c + cc, ak);
-    st<VEC>(dv + pix * c + cc, av);
+    __syncthreads();  // the next iteration's copies overwrite this buffer
   }
 }
 
-template <int VEC>
+// pass B: dk and dv; the rows of the tile are keys, the halo holds queries
+template <int KS, int VEC>
+__global__ void __launch_bounds__(kThreads, 2)
+    local_attn_bwd_key_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ dsum,
+                              float* __restrict__ dk, float* __restrict__ dv, int h, int w, int c,
+                              float scale) {
+  using G = Geo<KS>;
+  constexpr int NH = G::NH;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* band = smem + 2 * G::STAGE + threadIdx.x;  // see band_at
+  float* hl = smem + 2 * G::STAGE + NH * 8 * kThreads;  // the halo queries' log-sum-exp
+  float* hd = hl + G::HR * kNCol;                         // and their D
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int pr = warp / 2;
+  const int cw = warp % 2;
+  const int y0 = blockIdx.y * kTH;
+  const int x0 = blockIdx.x * kTW;
+  const int64_t img = (int64_t)blockIdx.z * h * w;
+  const int nslab = (c + kCS - 1) / kCS;
+  const int y = y0 + 2 * pr, x = x0 + 8 * cw + g;  // the lane's keys: (y, x), (y + 1, x)
+
+  // a query outside the map: P^T = exp(z - inf) = 0 and D = 0, so nothing
+  // (its q and dO are zero-filled too); read after the first barrier below
+  for (int e = threadIdx.x; e < G::HR * kNCol; e += kThreads) {
+    const int yy = y0 - G::R + e / kNCol, xx = x0 - G::R + e % kNCol;
+    const bool in = yy >= 0 && yy < h && xx >= 0 && xx < w;
+    hl[e] = in ? lse[img + (int64_t)yy * w + xx] : INFINITY;
+    hd[e] = in ? dsum[img + (int64_t)yy * w + xx] : 0.f;
+  }
+  // halo column of s[r][nt][e]: nt * 8 + (e & 1) from here, halo row r
+  const float* hl0 = hl + 2 * pr * kNCol + 8 * cw + 2 * t;
+  const float* hd0 = hd + 2 * pr * kNCol + 8 * cw + 2 * t;
+
+  float s[NH][2][4];
+  for_band<KS>(g, t, [&](int r, int nt, int e, bool) { s[r][nt][e] = 0.f; });
+
+  // sweep 0 stages k (tile) and q (halo) (S^T), 1 dO at the P V pitch (dv),
+  // 2 v (tile) and dO (halo) (dP^T), 3 q at the P V pitch (dk)
+  auto issue = [&](int st) {
+    float* buf = smem + (st & 1) * G::STAGE;
+    const int sweep = st / nslab, c0 = (st % nslab) * kCS;
+    if (sweep == 0) load_slab<KS, VEC>(buf, q, k, kQKPitch, img, h, w, c, c0, y0, x0);
+    else if (sweep == 1) load_slab<KS, VEC>(buf, dout, nullptr, kVPitch, img, h, w, c, c0, y0, x0);
+    else if (sweep == 2) load_slab<KS, VEC>(buf, dout, v, kQKPitch, img, h, w, c, c0, y0, x0);
+    else load_slab<KS, VEC>(buf, q, nullptr, kVPitch, img, h, w, c, c0, y0, x0);
+  };
+  issue(0);
+  di::cp_async_commit();
+  for (int st = 0; st < 4 * nslab; ++st) {
+    if (st + 1 < 4 * nslab) issue(st + 1);
+    di::cp_async_commit();
+    di::cp_async_wait<1>();
+    __syncthreads();
+    const float* buf = smem + (st & 1) * G::STAGE;
+    const int sweep = st / nslab;
+    if (sweep == 0 || sweep == 2) {
+      band_dot<KS, true>(s, buf, pr, cw, g, t);
+      if (st == nslab - 1) {
+        for_band<KS>(g, t, [&](int r, int nt, int e, bool in) {
+          s[r][nt][e] = in ? expf(s[r][nt][e] * scale - hl0[r * kNCol + nt * 8 + (e & 1)]) : 0.f;
+        });
+      } else if (st == 3 * nslab - 1) {
+        for_band<KS>(g, t, [&](int r, int nt, int e, bool) {
+          s[r][nt][e] = band[band_at(r, nt, e)] *
+                        (s[r][nt][e] - hd0[r * kNCol + nt * 8 + (e & 1)]) * scale;
+        });
+      }
+    } else {
+      float o[kCS / 8][4];
+      band_apply<KS>(o, s, buf, pr, cw, g, t);
+      store_slab<VEC>(sweep == 1 ? dv : dk, o, img, h, w, c, (st % nslab) * kCS, y, x, t);
+      if (st == 2 * nslab - 1) {  // P^T to the shared band, the registers cleared for dP^T
+        for_band<KS>(g, t, [&](int r, int nt, int e, bool) {
+          band[band_at(r, nt, e)] = s[r][nt][e];
+          s[r][nt][e] = 0.f;
+        });
+      }
+    }
+    __syncthreads();  // the next iteration's copies overwrite this buffer
+  }
+}
+
+template <int KS, int VEC>
 int launch_bwd(const float* q, const float* k, const float* v, const float* dout, float* dq,
-               float* dk, float* dv, float* p, float* ds, int64_t npix, int h, int w, int c,
-               int ks, float scale, cudaStream_t stream) {
-  const int64_t blocks = (npix + kBwdWarps - 1) / kBwdWarps;
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  local_attn_bwd_query_kernel<VEC><<<(unsigned)blocks, kBwdWarps * 32, 0, stream>>>(
-      q, k, v, dout, dq, p, ds, npix, h, w, c, ks, scale);
-  cudaError_t err = cudaGetLastError();
+               float* dk, float* dv, float* lse, float* dsum, int b, int h, int w, int c,
+               float scale, cudaStream_t stream) {
+  using G = Geo<KS>;
+  const int smem_a = (2 * G::STAGE + G::NH * 8 * kThreads) * (int)sizeof(float);
+  const int smem_b = smem_a + 2 * G::HR * kNCol * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(local_attn_bwd_query_kernel<KS, VEC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_a);
   if (err != cudaSuccess) return static_cast<int>(err);
-  local_attn_bwd_key_kernel<VEC><<<(unsigned)blocks, kBwdWarps * 32, 0, stream>>>(
-      q, dout, p, ds, dk, dv, npix, h, w, c, ks);
+  err = cudaFuncSetAttribute(local_attn_bwd_key_kernel<KS, VEC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_b);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((w + kTW - 1) / kTW, (h + kTH - 1) / kTH, b);
+  local_attn_bwd_query_kernel<KS, VEC><<<grid, kThreads, smem_a, stream>>>(
+      q, k, v, dout, dq, lse, dsum, h, w, c, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  local_attn_bwd_key_kernel<KS, VEC><<<grid, kThreads, smem_b, stream>>>(
+      q, k, v, dout, lse, dsum, dk, dv, h, w, c, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int KS>
+int launch_bwd_ks(const float* q, const float* k, const float* v, const float* dout, float* dq,
+                  float* dk, float* dv, float* lse, float* dsum, int b, int h, int w, int c,
+                  float scale, cudaStream_t stream) {
+  const bool vec = c % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                     reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+                     reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
+                     reinterpret_cast<uintptr_t>(dv)) & 15) == 0;
+  return vec ? launch_bwd<KS, 4>(q, k, v, dout, dq, dk, dv, lse, dsum, b, h, w, c, scale, stream)
+             : launch_bwd<KS, 1>(q, k, v, dout, dq, dk, dv, lse, dsum, b, h, w, c, scale, stream);
 }
 
 }  // namespace
 
-// q, k, v, dout [B, H, W, C] fp32 -> dq, dk, dv; p and ds are [B, H, W, ks*ks]
-// fp32 scratch. ks odd, 1 .. kMaxKernel.
+// q, k, v, dout [B, H, W, C] fp32 -> dq, dk, dv [B, H, W, C]. lse and dsum are
+// fp32 scratch of B*H*W floats each (each query's log-sum-exp and D, written
+// by pass A and read by pass B). ks odd, 1 .. kMaxKernel.
 extern "C" int di_local_attn_bwd(const void* q, const void* k, const void* v, const void* dout,
-                                 void* dq, void* dk, void* dv, void* p, void* ds, int b, int h,
-                                 int w, int c, int ks, float scale, void* stream) {
+                                 void* dq, void* dk, void* dv, void* lse, void* dsum, int b,
+                                 int h, int w, int c, int ks, float scale, void* stream) {
   if (b <= 0 || h <= 0 || w <= 0 || c <= 0) return 0;
-  if (ks % 2 != 1 || ks < 1 || ks > kMaxKernel) return static_cast<int>(cudaErrorInvalidValue);
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
@@ -522,15 +731,15 @@ extern "C" int di_local_attn_bwd(const void* q, const void* k, const void* v, co
   float* dqf = static_cast<float*>(dq);
   float* dkf = static_cast<float*>(dk);
   float* dvf = static_cast<float*>(dv);
-  const bool vec = c % 4 == 0 &&
-                   ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                     reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
-                     reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
-                     reinterpret_cast<uintptr_t>(dv)) & 15) == 0;
-  const int64_t npix = (int64_t)b * h * w;
+  float* lf = static_cast<float*>(lse);
+  float* df = static_cast<float*>(dsum);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* pf = static_cast<float*>(p);
-  float* dsf = static_cast<float*>(ds);
-  return vec ? launch_bwd<4>(qf, kf, vf, gf, dqf, dkf, dvf, pf, dsf, npix, h, w, c, ks, scale, s)
-             : launch_bwd<1>(qf, kf, vf, gf, dqf, dkf, dvf, pf, dsf, npix, h, w, c, ks, scale, s);
+  switch (ks) {
+    case 1: return launch_bwd_ks<1>(qf, kf, vf, gf, dqf, dkf, dvf, lf, df, b, h, w, c, scale, s);
+    case 3: return launch_bwd_ks<3>(qf, kf, vf, gf, dqf, dkf, dvf, lf, df, b, h, w, c, scale, s);
+    case 5: return launch_bwd_ks<5>(qf, kf, vf, gf, dqf, dkf, dvf, lf, df, b, h, w, c, scale, s);
+    case 7: return launch_bwd_ks<7>(qf, kf, vf, gf, dqf, dkf, dvf, lf, df, b, h, w, c, scale, s);
+    case 9: return launch_bwd_ks<9>(qf, kf, vf, gf, dqf, dkf, dvf, lf, df, b, h, w, c, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

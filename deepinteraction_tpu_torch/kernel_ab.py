@@ -7,6 +7,11 @@ commit's ``csrc``, or a variant of it) with the same nvcc flags, then, at the
 main-path shapes:
 
 - K2 ``local_attn_fwd`` at [6,112,200,128] and [1,180,180,128], k = 9;
+- K2's backward ``local_attn_bwd`` at [12,112,200,128] and [2,180,180,128],
+  k = 9 (the ``fusion_base`` train step's shapes), each of dq, dk, dv held
+  to 1e-4 of its scale; its two scratch buffers are allocated at
+  B*H*W*k^2 floats, the most any build of its C interface takes (builds up
+  to commit 8b7bc36 keep P and dS there; later ones B*H*W floats each);
 - K1 ``subm_conv_gemm`` at the nine conv shapes of one ``fusion_base`` eval
   frame, and as d/dfeat over the ``lidar_only`` train tables
   (``chip_smoke.encoder_tables`` and ``chip_smoke.train_tables``);
@@ -15,13 +20,14 @@ checks both builds against the plain versions at the tolerances of
 ``chip_smoke.py`` and times them in the order other, tree, tree, other
 (CUDA-event medians of ``chip_smoke.device_time_ms``). ``--mma-peak`` first
 times ``mma.sync`` m16n8k8 TF32 alone, on registers, across the card: the
-ceiling of the split-TF32 products. Run from the root of a checkout::
+ceiling of the split-TF32 products. Run from the root of a checkout, here
+against the fp32 CUDA-core backward of commit 8b7bc36::
 
     mkdir -p work_dirs/old_csrc
-    for f in subm_conv.cu local_attention.cu; do
-        git show a8e467e:deepinteraction_tpu_torch/csrc/$f > work_dirs/old_csrc/$f
+    for f in subm_conv.cu local_attention.cu tf32_mma.cuh; do
+        git show 8b7bc36:deepinteraction_tpu_torch/csrc/$f > work_dirs/old_csrc/$f
     done
-    python -m deepinteraction_tpu_torch.kernel_ab work_dirs/old_csrc --mma-peak
+    python -m deepinteraction_tpu_torch.kernel_ab work_dirs/old_csrc
 
 Fails without a CUDA device.
 """
@@ -127,12 +133,25 @@ def attn(lib, q, k, v, kernel):
     return out
 
 
+def attn_bwd(lib, q, k, v, dout, kernel):
+    b, h, w, c = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    lse, dsum = (q.new_empty(b, h, w, kernel * kernel) for _ in range(2))  # the most a build takes
+    cuda_lib.check(lib.di_local_attn_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+                                         dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), dsum.data_ptr(), b, h, w, c,
+                                         kernel, 1.0 / math.sqrt(c), cuda_lib.stream_ptr(q.device)),
+                   "local_attn_bwd")
+    return dq, dk, dv
+
+
 def in_turns(label: str, run, libs: dict, ref, tol) -> None:
-    """Both builds against the plain result, then timed other, tree, tree, other."""
+    """Both builds against the plain result (each output of a tuple), then
+    timed other, tree, tree, other."""
     for name, lib in libs.items():
         got = run(lib)
-        err = (got - ref).abs().max().item()
-        assert tol(got, ref), f"{label}: {name} build max abs err {err:.3e} out of tolerance"
+        for a, r in zip(got, ref) if isinstance(ref, tuple) else ((got, ref),):
+            err = (a - r).abs().max().item()
+            assert tol(a, r), f"{label}: {name} build max abs err {err:.3e} out of tolerance"
     t = {name: [] for name in libs}
     for name in ("other", "tree", "tree", "other"):
         t[name].append(cs.device_time_ms(lambda: run(libs[name])))
@@ -162,10 +181,16 @@ def main() -> None:
         gen = torch.Generator().manual_seed(0)
         k1_tol = lambda got, ref: (got - ref).abs().max().item() <= cs.K1_TOL * ref.abs().max().item()
         k2_tol = lambda got, ref: torch.allclose(got, ref, atol=cs.K2_TOL, rtol=cs.K2_TOL)
+        k2b_tol = lambda got, ref: (got - ref).abs().max().item() <= cs.K2_BWD_TOL * ref.abs().max().item()
         for shape in ((6, 112, 200, 128), (1, 180, 180, 128)):
             q, k, v = (torch.randn(shape, generator=gen).to(dev) for _ in range(3))
             in_turns(f"K2 local_attn_fwd {list(shape)} k=9", lambda lib: attn(lib, q, k, v, 9), libs,
                      la.local_attention(q, k, v, 9), k2_tol)
+        for shape in ((12, 112, 200, 128), (2, 180, 180, 128)):
+            q, k, v, dout = (torch.randn(shape, generator=gen).to(dev) for _ in range(4))
+            in_turns(f"K2 local_attn_bwd {list(shape)} k=9", lambda lib: attn_bwd(lib, q, k, v, dout, 9), libs,
+                     tuple(la.local_attention_bwd(q, k, v, dout, 9)), k2b_tol)
+            del q, k, v, dout
         cfg = fusion_base_config()
         batch = to_torch(make_synthetic_batch(cfg, b=1, seed=0), dev)
         for name, nbr, _, valid, kin, cin, cout, n in cs.encoder_tables(

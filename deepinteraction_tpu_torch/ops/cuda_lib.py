@@ -42,7 +42,7 @@ _SIGNATURES = {
     "di_subm_conv_wgrad": ([_P] * 5 + [_I] * 6 + [_P], _I),
     # q, k, v, out, b, h, w, c, kernel, scale, stream
     "di_local_attn_fwd": ([_P] * 4 + [_I] * 5 + [ctypes.c_float, _P], _I),
-    # q, k, v, dout, dq, dk, dv, p, ds, b, h, w, c, kernel, scale, stream
+    # q, k, v, dout, dq, dk, dv, lse, dsum, b, h, w, c, kernel, scale, stream
     "di_local_attn_bwd": ([_P] * 9 + [_I] * 5 + [ctypes.c_float, _P], _I),
     "di_error_string": ([_I], ctypes.c_char_p),
 }

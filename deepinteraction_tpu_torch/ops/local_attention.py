@@ -21,11 +21,14 @@ sizes up to ``MAX_KERNEL`` (the model uses 5 and 9).
 
 ``local_attn_bwd(q, k, v, dout, kernel)`` is its backward, dq, dk and dv. On
 a CUDA tensor it launches the two passes of ``csrc/local_attention.cu``
-(fp32 on CUDA cores; the JAX package re-differentiates its XLA oracle,
-``local_attention_pallas.py::_bwd``); on a CPU tensor it runs autograd of
+(pass A per query tile: dq, and each query's log-sum-exp and D; pass B per
+key tile: dk and dv), which multiply on the tensor cores in split TF32 like
+the forward; the JAX package re-differentiates its XLA oracle
+(``local_attention_pallas.py::_bwd``). On a CPU tensor it runs autograd of
 :func:`local_attention`, its plain version. ``local_attn_fwd`` keeps q, k
 and v for it, so a train step through K2 runs both kernels. Against the
-plain version it agrees within 1e-4 of each output's scale.
+plain version it agrees within 1e-4 of each output's scale, and it gives the
+same bits on every call (no atomics).
 """
 
 from __future__ import annotations
@@ -100,10 +103,10 @@ def local_attention_bwd(q, k, v, dout, kernel: int):
 def _launch_bwd(q, k, v, dout, kernel):
     b, h, w, c = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    p, ds = (q.new_empty(b, h, w, kernel * kernel) for _ in range(2))  # P and dS scratch
+    lse, dsum = (q.new_empty(b, h, w) for _ in range(2))  # each query's log-sum-exp and D
     code = cuda_lib.library().di_local_attn_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), p.data_ptr(), ds.data_ptr(), b, h, w, c, kernel, 1.0 / math.sqrt(c),
+        dv.data_ptr(), lse.data_ptr(), dsum.data_ptr(), b, h, w, c, kernel, 1.0 / math.sqrt(c),
         cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(code, "local_attn_bwd")

@@ -29,8 +29,10 @@ pytestmark = pytest.mark.gpu
 K1_TOL = 1e-4
 # K2 keeps fp32 accuracy throughout (split TF32 products, fp32 softmax)
 K2_TOL = 2e-5
-# K2's backward is fp32 on CUDA cores; its sums run in another order than
-# autograd's, so each of dq, dk, dv is held to 1e-4 of its scale, as K1's
+# K2's backward keeps fp32 accuracy (split TF32 products, fp32 softmax), but
+# it recomputes P in its second pass from each query's log-sum-exp and its
+# sums run in another order than autograd's, so each of dq, dk, dv is held to
+# 1e-4 of its scale, as K1's
 K2_BWD_TOL = 1e-4
 
 
@@ -204,6 +206,47 @@ def test_local_attn_bwd_matches_plain(cuda, shape, kernel):
         assert torch.equal(a, through_fwd.grad), name
         err = (a - ref).abs().max().item()
         assert err <= K2_BWD_TOL * scale, f"d{name}: {err:.3e} of scale {scale:.3e}"
+
+
+def _bwd_close(got, want):
+    for name, a, ref in zip("qkv", got, want):
+        scale = ref.abs().max().item()
+        err = (a - ref).abs().max().item()
+        assert err <= K2_BWD_TOL * scale, f"d{name}: {err:.3e} of scale {scale:.3e}"
+
+
+@pytest.mark.parametrize("c", [40, 128])
+def test_local_attn_bwd_sharp_softmax(cuda, c):
+    """q and k +-8, as in ``test_local_attn_fwd_sharp_softmax``: the scaled
+    logits spread over hundreds (x30 and more against normal inputs), P is
+    nearly one-hot and every logit is exact in both versions, so the
+    log-sum-exp that pass B recomputes P from is tested where it is largest."""
+    g = torch.Generator(device="cpu").manual_seed(c)
+    q, k, v, dout = (torch.randn((1, 37, 45, c), generator=g).to(cuda) for _ in range(4))
+    q, k = 8 * torch.sign(q), 8 * torch.sign(k)
+    _bwd_close(la.local_attn_bwd(q, k, v, dout, 9), la.local_attention_bwd(q, k, v, dout, 9))
+
+
+@pytest.mark.parametrize("shape,kernel", [((2, 180, 180, 128), 9), ((1, 13, 21, 6), 5)])
+def test_local_attn_bwd_deterministic(cuda, shape, kernel):
+    """No atomics: two calls on the same inputs give the same bits."""
+    g = torch.Generator(device="cpu").manual_seed(sum(shape))
+    q, k, v, dout = (torch.randn(shape, generator=g).to(cuda) for _ in range(4))
+    first = la.local_attn_bwd(q, k, v, dout, kernel)
+    second = la.local_attn_bwd(q, k, v, dout, kernel)
+    for name, a, b in zip("qkv", first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("kernel", [1, 3, 5, 7, 9])
+@pytest.mark.parametrize("hw", [(5, 17), (13, 33), (4, 16), (1, 31)])
+def test_local_attn_bwd_ragged_tiles(cuda, kernel, hw):
+    """H and W not multiples of the 4 x 16 tile (and one that is), every
+    window size: the edge tiles of both passes, and queries and keys outside
+    the map in the halo."""
+    g = torch.Generator(device="cpu").manual_seed(kernel * 100 + hw[0] * hw[1])
+    q, k, v, dout = (torch.randn((2, *hw, 48), generator=g).to(cuda) for _ in range(4))
+    _bwd_close(la.local_attn_bwd(q, k, v, dout, kernel), la.local_attention_bwd(q, k, v, dout, kernel))
 
 
 def test_backward_not_ported(cuda):
