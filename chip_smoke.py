@@ -35,7 +35,8 @@ kernels (d/dfeat: K1 over the inverse table; d/dW: ``subm_conv_wgrad``):
 
 8. K1's forward, d/dfeat and d/dW against autograd of the plain version at
    the nine conv shapes of the train batch's tables and a random table
-   with 9 hits per row; times as in phase 4, summed per train step;
+   with 9 hits per row, and two d/dW calls at stage 3 to the same bits;
+   times as in phase 4, summed per train step;
 9. one ``tiny_lidar_config`` train step on the card against the port's
    CPU path (which tests/test_torch_port_train.py holds to JAX);
 10. full width, B=2: one eval frame + ``get_bboxes``; one train step with
@@ -67,9 +68,9 @@ blocks trained), through K1's forward and K2's forward and backward:
 
 A bound is the larger of the bytes (each input read once, each output
 written once) over 3.35 TB/s and the useful operations over the peak rate
-of the units the kernel multiplies on: TF32 tensor cores for K1's forward,
-d/dfeat and both K2 kernels (split TF32), fp32 CUDA cores for d/dW. The
-line before the
+of the units the kernel multiplies on: TF32 tensor cores for every kernel
+(split TF32); phase 8 also gives d/dW's bound at the fp32 CUDA-core rate,
+the units it multiplied on before. The line before the
 last is the kernels' JSON record, each kernel with its numbers at one
 main-path shape and at every shape it was timed at; the last line is
 ``{"ok": true, "device": {...}}``. Usage: ``python3 chip_smoke.py``.
@@ -101,7 +102,7 @@ from deepinteraction_tpu_torch.train.step import TrainStep
 from deepinteraction_tpu_torch.utils.synthetic import init_weights, make_synthetic_batch, to_torch
 
 # K1 and K2 keep fp32 accuracy like their plain versions (split TF32 on the
-# tensor cores, fp32 on CUDA cores for d/dW); only the summation order differs
+# tensor cores); only the summation order differs
 K1_TOL = 1e-4  # max|kernel - plain| / max|plain|
 K2_TOL = 2e-5  # absolute and relative, as torch.testing.assert_close
 K2_BWD_TOL = 1e-4  # max|kernel - plain| / max|plain| for each of dq, dk, dv
@@ -137,12 +138,12 @@ REPS, WARMUP, BATCH = 10, 3, 5
 TRAIN_REPS, TRAIN_WARMUP = 5, 2
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, and FLOP/s of the
 # units each kernel multiplies on: dense TF32 on the tensor cores for K1's
-# forward (so d/dfeat) and K2, which run split TF32 and are bounded over the
-# useful operations, not the three TF32 products of each; fp32 on CUDA cores
-# for subm_conv_wgrad
+# forward (so d/dfeat), d/dW and K2, which run split TF32 and are bounded over
+# the useful operations, not the three TF32 products of each; fp32 on CUDA
+# cores, where d/dW ran before, for comparison with earlier records
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {"tf32": 495e12, "fp32": 67e12}
-K1_UNITS = {"fwd": "tf32", "dgrad": "tf32", "wgrad": "fp32"}
+K1_UNITS = {"fwd": "tf32", "dgrad": "tf32", "wgrad": "tf32"}
 
 
 def log(*a):
@@ -181,10 +182,11 @@ def bound(n_bytes: float, flops: float, units: str) -> dict:
             "peak": f"{units} {PEAK_FLOP_PER_S[units] / 1e12:g} TFLOP/s"}
 
 
-def k1_bound(kind: str, nbr, valid_out, kin: int, cin: int, cout: int) -> dict:
+def k1_bound(kind: str, nbr, valid_out, kin: int, cin: int, cout: int, units: str = "") -> dict:
     """Bound of one K1 call (``fwd``, ``dgrad`` or ``wgrad``) over the
     table ``nbr`` [Ko, D]: each input read once, each output written once,
-    2 * cin * cout operations per hit (i, d) of this table."""
+    2 * cin * cout operations per hit (i, d) of this table, at the peak of
+    ``units`` (default: the kernel's own, ``K1_UNITS``)."""
     ko, taps = nbr.shape
     hits = ((nbr < kin) & valid_out[:, None]).sum().item()
     w = taps * cin * cout
@@ -193,7 +195,7 @@ def k1_bound(kind: str, nbr, valid_out, kin: int, cin: int, cout: int) -> dict:
         "dgrad": ko * cout + kin * taps + w + kin * cin + kin / 4,  # dy, inv, W^T, dfeat, valid
         "wgrad": kin * cin + ko * taps + ko * cout + w,  # feat, nbr, dy, dW
     }[kind] * 4
-    return bound(n_bytes, 2.0 * hits * cin * cout, K1_UNITS[kind])
+    return bound(n_bytes, 2.0 * hits * cin * cout, units or K1_UNITS[kind])
 
 
 def timing(kern, plain, bd: dict, launches: int) -> dict:
@@ -460,11 +462,20 @@ def check_k1_backward(cfg, batch, dev, gen, b: int):
             assert rel <= K1_TOL, f"K1 {kind} {name}: max rel err {rel:.3e} > {K1_TOL}"
             recs[kind]["max_abs_err"] = max(recs[kind]["max_abs_err"], err)
             msg.append(f"{kind} max_abs_err={err:.3e} max_rel_err={rel:.3e}")
+        if name == "stage3":
+            again = [smc.subm_conv_wgrad(f0, nbr, dy) for _ in range(2)]
+            assert torch.equal(*again), "K1 wgrad stage3: two calls differ"
+            msg.append("wgrad two calls bit-equal")
         log(" ".join(msg))
         for kind, (kern, plain) in timed.items():
             launches = 0 if kind == "dgrad" and name == "conv_input" else n * b
             t = timing(kern, plain, k1_bound(kind, nbr, valid, kin, cin, cout), launches)
-            log(f"  {kind} {timing_text(t)}")
+            text = f"  {kind} {timing_text(t)}"
+            if kind == "wgrad":
+                fp32 = k1_bound(kind, nbr, valid, kin, cin, cout, "fp32")["bound_ms"]
+                t["bound_fp32_ms"], t["share_fp32"] = fp32, fp32 / t["ms"]
+                text += f" (at the fp32 rate: bound_ms={fp32:.4f} share={100 * t['share_fp32']:.1f}%)"
+            log(text)
             recs[kind]["shapes"].append(dict(t, shape=shape))
             per_step[kind] += t["launch_ms"]
     log(f"K1 per lidar_only train step (B={b}), sum of launches*ms: forward {per_step['fwd']:.4f} ms, "

@@ -298,110 +298,275 @@ int launch_kc(const float* feat, const int32_t* nbr, const float* w, const uint8
   return launch<64, 64, 2, 2, KC, 3>(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, flags, stream);
 }
 
-constexpr int kWgThreads = 256;
-
 // subm_conv_wgrad replaces d/dW of the JAX backward,
-// deepinteraction_tpu/ops/sparse_conv_banded.py::_banded_bwd (a tap loop of
-// XLA row gathers and contractions beside the Pallas kernel's d/dfeat).
+// deepinteraction_tpu/ops/sparse_conv_banded.py::_banded_bwd (:234-249, a tap
+// loop of XLA row gathers and contractions beside the Pallas kernel's
+// d/dfeat): dw[d] = sum_i feat[nbr[i, d]]^T @ dy[i], per tap a GEMM with
+// M = Cin, N = Cout and the table's rows as its depth.
 //
-// Bound on the H100: each (tap, row) pair reads one gathered feat row and one
-// dy row and does cin * cout multiply-adds with them; at 16 -> 16 that is 16
-// flops per byte read, so the narrow stages are bound by the gathered bytes and
-// the 128-wide stage by fp32 arithmetic on CUDA cores. Design: the grid is
-// (chunk of row tiles, tap, output tile). A block walks its chunk's tiles of
-// kWgRows rows; for each it stages the gathered feat rows (zero for a miss) and
-// the dy rows in shared memory and accumulates its [BI, BJ] slice of dw[d] in
-// registers (an RI x RJ micro-tile per thread). A tile whose rows all miss at
-// tap d is skipped without touching feat or dy: the synthetic stage-0 table
-// hits about 1.1 of 27 taps per row. Each block writes one partial; a second
-// pass sums the partials in chunk order, so the result is deterministic (fp32
-// atomics would not be).
-constexpr int kWgRows = 64;
+// Bound on the H100: each (tap, row) pair with a hit reads one gathered feat
+// row and one dy row and does 2 cin cout operations with them. At the TF32
+// tensor-core rate only train stage 3 (29 500 rows, 128 -> 128, 11.4 hits per
+// row) is bound by operations, 0.022 ms; the other convs by bytes, most of
+// them the table's.
+//
+// Design:
+// - grid (chunk of rows, tap, output tile); a block writes one partial
+//   [cin, cout] slice and sum_partials_kernel adds the partials in chunk
+//   order: no atomics, so two calls give the same bits;
+// - a block reads its chunk's column of the table once (up to 32 tiles of
+//   32 rows), lists the tiles with a hit at its tap and walks only those; a
+//   warp skips the 8-row k-steps in which no row hits;
+// - each listed tile is staged by cp.async, the feat rows gathered (a miss
+//   zero-fills its feat row and its dy row, neither is read), STAGES - 1
+//   tiles in flight ahead of the math, one barrier a tile;
+// - the products run on the tensor cores, mma.sync m16n8k8 in split TF32
+//   (tf32_mma.cuh) at fp32 accuracy: A[m][k] = feat tile[row k][ci m], the
+//   staged tile read transposed, and B[k][n] = dy tile[row k][co n]; a pitch
+//   of width + 8 floats makes both fragment reads conflict-free;
+// - the output tile is square, by the larger width: 128 x 128 with 8 warps of
+//   32 x 64 above 64 channels (each row of stage 3, conv_out and down2's dy is
+//   staged once per tap), 64 x 64 and 32 x 32 with 4 warps, and 16 x 16 with
+//   4 warps that each take their own k-steps of a tile and are summed in warp
+//   order at the end. A warp whose part of the tile lies past cin or cout
+//   (down0-2, conv_input) skips its products.
+//
+// What bounds it instead (PERF.md): the three mma.sync products per fp32
+// product, taken over every row of an 8-row step with a hit, missed rows
+// included (58 % of the row-tap pairs miss at stage 3); at 16 and 32
+// columns, the latency of the strided table reads and the row gathers.
+constexpr int kWgRows = 32;    // rows a tile: one lane of a warp per row
+constexpr int kWgMaxTiles = 32;  // tiles a block walks at most (1024 rows)
 
-template <int BI, int BJ>
-__global__ void __launch_bounds__(kWgThreads)
+// B x B output tile; WARPS_M x WARPS_N warps across it, WARPS_K warps across
+// each tile's k-steps; STAGES tile buffers
+template <int B_, int WARPS_M_, int WARPS_N_, int WARPS_K_, int STAGES_>
+struct WgTile {
+  static constexpr int B = B_, WARPS_M = WARPS_M_, WARPS_N = WARPS_N_, WARPS_K = WARPS_K_;
+  static constexpr int STAGES = STAGES_;
+  static constexpr int THREADS = 32 * WARPS_M * WARPS_N * WARPS_K;
+  static constexpr int MIN_BLOCKS = 512 / THREADS;  // at most 128 registers a thread
+  static constexpr int WM = B / WARPS_M;  // cin per warp
+  static constexpr int WN = B / WARPS_N;  // cout per warp
+  static constexpr int MT = WM / 16;
+  static constexpr int NT = WN / 8;
+  static constexpr int P = B + 8;  // 8 or 24 mod 32: conflict-free fragment reads
+  static constexpr int STAGE = 2 * kWgRows * P;  // floats: the feat tile, then the dy tile
+  // the loader's loops: unrolled at 16 columns, where the loads bound the
+  // kernel; rolled above, where the unrolled address arithmetic beside the
+  // accumulators spilled at 128 registers
+  static constexpr int LOAD_UNROLL = B == 16 ? 4 : 1;
+  // floats before the first stage buffer: the column of the table, the hit
+  // flags, the list of hit tiles and its length, 16-byte aligned
+  static constexpr int HEAD = (kWgMaxTiles * kWgRows + 2 * kWgMaxTiles + 1 + 3) / 4 * 4;
+  static_assert(MT * 16 == WM && NT * 8 == WN, "warp tile");
+  static_assert((kWgRows / 8) % WARPS_K == 0, "k-steps per warp");
+  static_assert(kWgRows == 32 && kWgMaxTiles == 32, "one lane per row and per tile");
+};
+
+enum : int { kWgFeatVec = 1, kWgDyVec = 2 };
+
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
     subm_conv_wgrad_kernel(const float* __restrict__ feat,
                            const int32_t* __restrict__ nbr,
                            const float* __restrict__ dy,
                            float* __restrict__ partial, int kin, int ko,
-                           int taps, int cin, int cout, int tiles_per_block) {
-  constexpr int TJ = 16;  // threads across dw columns (cout)
-  constexpr int TI = kWgThreads / TJ;  // threads across dw rows (cin)
-  constexpr int RI = BI / TI;
-  constexpr int RJ = BJ / TJ;
-  static_assert(RI * TI == BI && RJ * TJ == BJ, "tile must cover the threads");
-  __shared__ int32_t src[kWgRows];
-  __shared__ float as[kWgRows][BI];
-  __shared__ float bs[kWgRows][BJ];
+                           int taps, int cin, int cout, int tiles_per_block,
+                           int flags) {
+  constexpr int B = T::B, P = T::P, RT = kWgRows, STAGES = T::STAGES, THREADS = T::THREADS;
+  extern __shared__ float4 smem4[];
+  int32_t* src = reinterpret_cast<int32_t*>(smem4);  // [block rows]: feat row, -1 = miss
+  int32_t* hit = src + kWgMaxTiles * RT;             // [tiles]: the tile has a hit
+  int32_t* list = hit + kWgMaxTiles;                 // [tiles + 1]: hit tiles in order, then their count
+  float* stages = reinterpret_cast<float*>(smem4) + T::HEAD;
 
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int wk = T::WARPS_K == 1 ? 0 : warp / (T::WARPS_M * T::WARPS_N);
+  const int wm = (warp / T::WARPS_N) % T::WARPS_M;
+  const int wn = warp % T::WARPS_N;
   const int chunk = blockIdx.x;
   const int d = blockIdx.y;
-  const int n_jt = (cout + BJ - 1) / BJ;
-  const int i0 = (blockIdx.z / n_jt) * BI;
-  const int j0 = (blockIdx.z % n_jt) * BJ;
-  const int tid = threadIdx.x;
-  const int tx = tid % TJ;
-  const int ty = tid / TJ;
-  float acc[RI][RJ];
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < RJ; ++j) acc[i][j] = 0.f;
+  const int n_jt = (cout + B - 1) / B;
+  const int i0 = (blockIdx.z / n_jt) * B;
+  const int j0 = (blockIdx.z % n_jt) * B;
+  const bool active = i0 + wm * T::WM < cin && j0 + wn * T::WN < cout;
 
-  const int n_tiles = (ko + kWgRows - 1) / kWgRows;
-  const int t_end = min(n_tiles, (chunk + 1) * tiles_per_block);
-  for (int t = chunk * tiles_per_block; t < t_end; ++t) {
-    const int row0 = t * kWgRows;
-    int hit = 0;
-    for (int m = tid; m < kWgRows; m += kWgThreads) {
-      const int r = row0 + m;
-      const int idx = r < ko ? nbr[(int64_t)r * taps + d] : -1;
-      const bool ok = idx >= 0 && idx < kin;
-      src[m] = ok ? idx : -1;
-      hit |= ok;
-    }
-    // doubles as the barrier that publishes src[]
-    if (!__syncthreads_or(hit)) continue;
+  float acc[T::MT][T::NT][4];
+#pragma unroll
+  for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-    for (int e = tid; e < kWgRows * BI; e += kWgThreads) {
-      const int m = e / BI;
-      const int ii = e % BI;
-      const int s = src[m];
-      as[m][ii] = (s >= 0 && i0 + ii < cin) ? feat[(int64_t)s * cin + i0 + ii] : 0.f;
+  // 1. the block's column of the table (its chunk's tiles, at most
+  // kWgMaxTiles), and the tiles with a hit
+  const int n_tiles = (ko + RT - 1) / RT;
+  const int w0 = chunk * tiles_per_block;
+  const int nt = min(n_tiles, w0 + tiles_per_block) - w0;
+  if (tid < kWgMaxTiles) hit[tid] = 0;
+  __syncthreads();
+  for (int e = tid; e < nt * RT; e += THREADS) {
+    const int r = w0 * RT + e;
+    const int idx = r < ko ? nbr[(int64_t)r * taps + d] : -1;
+    const bool ok = idx >= 0 && idx < kin;
+    src[e] = ok ? idx : -1;
+    if (ok) hit[e / RT] = 1;  // every writer stores the same value
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const bool h = lane < nt && hit[lane] != 0;
+    const unsigned mask = __ballot_sync(0xffffffffu, h);
+    if (h) list[__popc(mask & ((1u << lane) - 1u))] = lane;
+    if (lane == 0) list[kWgMaxTiles] = __popc(mask);
+  }
+  __syncthreads();
+  const int n = list[kWgMaxTiles];
+
+  // 2. the listed tiles: the loader runs STAGES - 1 ahead of the math
+  auto load = [&](int s) {
+    const int lt = list[s];
+    const int32_t* rows = src + lt * RT;
+    const int64_t row0 = (int64_t)(w0 + lt) * RT;
+    float* as = stages + (s % STAGES) * T::STAGE;
+    float* bs = as + RT * P;
+    if (flags & kWgFeatVec) {
+#pragma unroll(T::LOAD_UNROLL)
+      for (int e = tid; e < RT * B / 4; e += THREADS) {
+        const int m = e / (B / 4);
+        const int c = (e % (B / 4)) * 4;
+        const int sr = rows[m];
+        const bool ok = sr >= 0 && i0 + c < cin;
+        di::cp_async16(as + m * P + c, ok ? feat + (int64_t)sr * cin + i0 + c : feat, ok);
+      }
+    } else {
+#pragma unroll(T::LOAD_UNROLL)
+      for (int e = tid; e < RT * B; e += THREADS) {
+        const int m = e / B;
+        const int c = e % B;
+        const int sr = rows[m];
+        const bool ok = sr >= 0 && i0 + c < cin;
+        di::cp_async4(as + m * P + c, ok ? feat + (int64_t)sr * cin + i0 + c : feat, ok);
+      }
     }
-    for (int e = tid; e < kWgRows * BJ; e += kWgThreads) {
-      const int m = e / BJ;
-      const int jj = e % BJ;
-      bs[m][jj] = (src[m] >= 0 && j0 + jj < cout)
-                      ? dy[(int64_t)(row0 + m) * cout + j0 + jj]
-                      : 0.f;
+    if (flags & kWgDyVec) {
+#pragma unroll(T::LOAD_UNROLL)
+      for (int e = tid; e < RT * B / 4; e += THREADS) {
+        const int m = e / (B / 4);
+        const int c = (e % (B / 4)) * 4;
+        const bool ok = rows[m] >= 0 && j0 + c < cout;
+        di::cp_async16(bs + m * P + c, ok ? dy + (row0 + m) * cout + j0 + c : dy, ok);
+      }
+    } else {
+#pragma unroll(T::LOAD_UNROLL)
+      for (int e = tid; e < RT * B; e += THREADS) {
+        const int m = e / B;
+        const int c = e % B;
+        const bool ok = rows[m] >= 0 && j0 + c < cout;
+        di::cp_async4(bs + m * P + c, ok ? dy + (row0 + m) * cout + j0 + c : dy, ok);
+      }
+    }
+  };
+
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n) load(s);
+    di::cp_async_commit();
+  }
+  for (int s = 0; s < n; ++s) {
+    di::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile s landed; the buffer of tile s - 1 is free
+    if (s + STAGES - 1 < n) load(s + STAGES - 1);
+    di::cp_async_commit();
+
+    // the rows of tile s that hit tap d, one bit each
+    const unsigned rows_hit = __ballot_sync(0xffffffffu, src[list[s] * RT + lane] >= 0);
+    if (active) {
+      const float* as = stages + (s % STAGES) * T::STAGE + wm * T::WM;
+      const float* bs = stages + (s % STAGES) * T::STAGE + RT * P + wn * T::WN;
+#pragma unroll
+      for (int ks = wk; ks < RT / 8; ks += T::WARPS_K) {
+        if (((rows_hit >> (8 * ks)) & 0xffu) == 0u) continue;
+        const float* a = as + (8 * ks + t) * P + g;
+        uint32_t ah[T::MT][4], al[T::MT][4];
+#pragma unroll
+        for (int i = 0; i < T::MT; ++i) {
+          di::split_tf32(a[i * 16], ah[i][0], al[i][0]);
+          di::split_tf32(a[i * 16 + 8], ah[i][1], al[i][1]);
+          di::split_tf32(a[4 * P + i * 16], ah[i][2], al[i][2]);
+          di::split_tf32(a[4 * P + i * 16 + 8], ah[i][3], al[i][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < T::NT; ++j) {
+          const float* b = bs + (8 * ks + t) * P + j * 8 + g;
+          uint32_t bh[2], bl[2];
+          di::split_tf32(b[0], bh[0], bl[0]);
+          di::split_tf32(b[4 * P], bh[1], bl[1]);
+#pragma unroll
+          for (int i = 0; i < T::MT; ++i) di::mma_split(acc[i][j], ah[i], al[i], bh, bl);
+        }
+      }
+    }
+  }
+  di::cp_async_wait<0>();
+
+  // 3. warps that took other k-steps of the same part of the tile: summed in
+  // warp order through shared memory
+  if constexpr (T::WARPS_K > 1) {
+    constexpr int ACC = T::MT * T::NT * 4;
+    constexpr int PARTS = T::WARPS_M * T::WARPS_N;
+    const int part = warp % PARTS;
+    float* red = stages;
+    __syncthreads();  // every warp is done with the stages
+    if (wk > 0) {
+      float* r = red + ((wk - 1) * PARTS + part) * ACC * 32 + lane;
+#pragma unroll
+      for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) r[((i * T::NT + j) * 4 + e) * 32] = acc[i][j][e];
     }
     __syncthreads();
-    for (int m = 0; m < kWgRows; ++m) {
-      float a[RI], b[RJ];
+    if (wk > 0) return;
+    for (int k = 1; k < T::WARPS_K; ++k) {
+      const float* r = red + ((k - 1) * PARTS + part) * ACC * 32 + lane;
 #pragma unroll
-      for (int i = 0; i < RI; ++i) a[i] = as[m][ty + i * TI];
+      for (int i = 0; i < T::MT; ++i)
 #pragma unroll
-      for (int j = 0; j < RJ; ++j) b[j] = bs[m][tx + j * TJ];
+        for (int j = 0; j < T::NT; ++j)
 #pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < RJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += r[((i * T::NT + j) * 4 + e) * 32];
     }
-    __syncthreads();
   }
 
+  // 4. the block's partial: rows g, g+8 (cin) and columns 2t, 2t+1 (cout) of
+  // each 16 x 8 tile
   float* p = partial + ((int64_t)chunk * taps + d) * cin * cout;
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int ci = i0 + ty + i * TI;
-    if (ci >= cin) continue;
+  for (int i = 0; i < T::MT; ++i)
 #pragma unroll
-    for (int j = 0; j < RJ; ++j) {
-      const int cj = j0 + tx + j * TJ;
-      if (cj < cout) p[(int64_t)ci * cout + cj] = acc[i][j];
+    for (int half = 0; half < 2; ++half) {
+      const int ci = i0 + wm * T::WM + i * 16 + g + 8 * half;
+      if (ci >= cin) continue;
+#pragma unroll
+      for (int j = 0; j < T::NT; ++j) {
+        const int co = j0 + wn * T::WN + j * 8 + 2 * t;
+        const float v0 = acc[i][j][2 * half];
+        const float v1 = acc[i][j][2 * half + 1];
+        float* o = p + (int64_t)ci * cout + co;
+        if (co + 1 < cout && (cout % 2) == 0) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          if (co < cout) o[0] = v0;
+          if (co + 1 < cout) o[1] = v1;
+        }
+      }
     }
-  }
 }
 
 // out[e] = sum_c partial[c, e], in chunk order
@@ -415,16 +580,23 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial,
   out[e] = s;
 }
 
-template <int BI, int BJ>
-void launch_wgrad(const float* feat, const int32_t* nbr, const float* dy,
-                  float* partial, int kin, int ko, int taps, int cin, int cout,
-                  int chunks, cudaStream_t stream) {
+template <class T>
+int launch_wgrad(const float* feat, const int32_t* nbr, const float* dy,
+                 float* partial, int kin, int ko, int taps, int cin, int cout,
+                 int chunks, int flags, cudaStream_t stream) {
+  auto kernel = subm_conv_wgrad_kernel<T>;
+  const int smem = (T::HEAD + T::STAGES * T::STAGE) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int n_tiles = (ko + kWgRows - 1) / kWgRows;
   const int per_block = (n_tiles + chunks - 1) / chunks;
-  const int out_tiles = ((cin + BI - 1) / BI) * ((cout + BJ - 1) / BJ);
+  // a block walks at most kWgMaxTiles tiles: chunks of up to kWgMaxTiles *
+  // kWgRows rows, as the caller's partial buffer is sized
+  if (per_block > kWgMaxTiles) return static_cast<int>(cudaErrorInvalidValue);
+  const int out_tiles = ((cin + T::B - 1) / T::B) * ((cout + T::B - 1) / T::B);
   dim3 grid(chunks, taps, out_tiles);
-  subm_conv_wgrad_kernel<BI, BJ><<<grid, kWgThreads, 0, stream>>>(
-      feat, nbr, dy, partial, kin, ko, taps, cin, cout, per_block);
+  kernel<<<grid, T::THREADS, smem, stream>>>(feat, nbr, dy, partial, kin, ko, taps, cin, cout, per_block, flags);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -461,14 +633,20 @@ extern "C" int di_subm_conv_wgrad(const void* feat, const void* nbr,
   float* part = static_cast<float*>(partial);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ko > 0 && chunks > 0) {
+    auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+    const int flags = (cin % 4 == 0 && aligned(feat) ? kWgFeatVec : 0) | (cout % 4 == 0 && aligned(dy) ? kWgDyVec : 0);
     const int width = cin > cout ? cin : cout;
+    int err;
     if (width <= 16) {
-      launch_wgrad<16, 16>(f, nb, g, part, kin, ko, taps, cin, cout, chunks, s);
+      err = launch_wgrad<WgTile<16, 1, 1, 4, 4>>(f, nb, g, part, kin, ko, taps, cin, cout, chunks, flags, s);
     } else if (width <= 32) {
-      launch_wgrad<32, 32>(f, nb, g, part, kin, ko, taps, cin, cout, chunks, s);
+      err = launch_wgrad<WgTile<32, 2, 2, 1, 3>>(f, nb, g, part, kin, ko, taps, cin, cout, chunks, flags, s);
+    } else if (width <= 64) {
+      err = launch_wgrad<WgTile<64, 2, 2, 1, 3>>(f, nb, g, part, kin, ko, taps, cin, cout, chunks, flags, s);
     } else {
-      launch_wgrad<64, 64>(f, nb, g, part, kin, ko, taps, cin, cout, chunks, s);
+      err = launch_wgrad<WgTile<128, 4, 2, 1, 3>>(f, nb, g, part, kin, ko, taps, cin, cout, chunks, flags, s);
     }
+    if (err != 0) return err;
   } else {
     chunks = 0;
   }

@@ -15,17 +15,19 @@ main-path shapes:
 - K1 ``subm_conv_gemm`` at the nine conv shapes of one ``fusion_base`` eval
   frame, and as d/dfeat over the ``lidar_only`` train tables
   (``chip_smoke.encoder_tables`` and ``chip_smoke.train_tables``);
+- K1's d/dW ``subm_conv_wgrad`` over the same train tables, with the sum of
+  launches x time of each build over one ``lidar_only`` step (B=2);
 
 checks both builds against the plain versions at the tolerances of
 ``chip_smoke.py`` and times them in the order other, tree, tree, other
 (CUDA-event medians of ``chip_smoke.device_time_ms``). ``--mma-peak`` first
 times ``mma.sync`` m16n8k8 TF32 alone, on registers, across the card: the
 ceiling of the split-TF32 products. Run from the root of a checkout, here
-against the fp32 CUDA-core backward of commit 8b7bc36::
+against the fp32 CUDA-core d/dW of commit f0040e7::
 
     mkdir -p work_dirs/old_csrc
     for f in subm_conv.cu local_attention.cu tf32_mma.cuh; do
-        git show 8b7bc36:deepinteraction_tpu_torch/csrc/$f > work_dirs/old_csrc/$f
+        git show f0040e7:deepinteraction_tpu_torch/csrc/$f > work_dirs/old_csrc/$f
     done
     python -m deepinteraction_tpu_torch.kernel_ab work_dirs/old_csrc
 
@@ -124,6 +126,19 @@ def gemm(lib, feat, nbr, w, valid):
     return out
 
 
+def wgrad(lib, feat, nbr, dy):
+    """d/dW through ``lib``'s C interface, with the partial buffer of
+    ``ops/subm_conv.py::subm_conv_wgrad``."""
+    (ko, taps), (kin, cin), cout = nbr.shape, feat.shape, dy.shape[1]
+    chunks = -(-ko // smc.WGRAD_ROWS_PER_BLOCK)
+    partial = feat.new_empty(max(chunks, 1), taps, cin, cout)
+    out = feat.new_empty(taps, cin, cout)
+    cuda_lib.check(lib.di_subm_conv_wgrad(feat.data_ptr(), nbr.data_ptr(), dy.data_ptr(), partial.data_ptr(),
+                                          out.data_ptr(), kin, ko, taps, cin, cout, chunks,
+                                          cuda_lib.stream_ptr(feat.device)), "subm_conv_wgrad")
+    return out
+
+
 def attn(lib, q, k, v, kernel):
     b, h, w, c = q.shape
     out = torch.empty_like(q)
@@ -144,9 +159,12 @@ def attn_bwd(lib, q, k, v, dout, kernel):
     return dq, dk, dv
 
 
-def in_turns(label: str, run, libs: dict, ref, tol) -> None:
+def in_turns(label: str, run, libs: dict, ref, tol, match: str = "") -> tuple:
     """Both builds against the plain result (each output of a tuple), then
-    timed other, tree, tree, other."""
+    timed other, tree, tree, other; returns the mean ms of other and tree
+    (nothing is run, and 0.0 returned, where ``match`` is not in ``label``)."""
+    if match not in label:
+        return 0.0, 0.0
     for name, lib in libs.items():
         got = run(lib)
         for a, r in zip(got, ref) if isinstance(ref, tuple) else ((got, ref),):
@@ -158,12 +176,14 @@ def in_turns(label: str, run, libs: dict, ref, tol) -> None:
     other, tree = (sum(t[n]) / 2 for n in ("other", "tree"))
     print(f"{label}: other_ms={t['other'][0]:.4f},{t['other'][1]:.4f} tree_ms={t['tree'][0]:.4f},{t['tree'][1]:.4f} "
           f"tree/other={tree / other:.3f}", flush=True)
+    return other, tree
 
 
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("other", help="directory of .cu sources with the same C interface")
     p.add_argument("--mma-peak", action="store_true", help="time mma.sync TF32 alone first")
+    p.add_argument("--match", default="", help="run only the cases whose label holds this text, e.g. wgrad")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device")
@@ -185,11 +205,11 @@ def main() -> None:
         for shape in ((6, 112, 200, 128), (1, 180, 180, 128)):
             q, k, v = (torch.randn(shape, generator=gen).to(dev) for _ in range(3))
             in_turns(f"K2 local_attn_fwd {list(shape)} k=9", lambda lib: attn(lib, q, k, v, 9), libs,
-                     la.local_attention(q, k, v, 9), k2_tol)
+                     la.local_attention(q, k, v, 9), k2_tol, args.match)
         for shape in ((12, 112, 200, 128), (2, 180, 180, 128)):
             q, k, v, dout = (torch.randn(shape, generator=gen).to(dev) for _ in range(4))
             in_turns(f"K2 local_attn_bwd {list(shape)} k=9", lambda lib: attn_bwd(lib, q, k, v, dout, 9), libs,
-                     tuple(la.local_attention_bwd(q, k, v, dout, 9)), k2b_tol)
+                     tuple(la.local_attention_bwd(q, k, v, dout, 9)), k2b_tol, args.match)
             del q, k, v, dout
         cfg = fusion_base_config()
         batch = to_torch(make_synthetic_batch(cfg, b=1, seed=0), dev)
@@ -198,15 +218,26 @@ def main() -> None:
             f = torch.randn(kin, cin, generator=gen).to(dev)
             w = (torch.randn(nbr.shape[1], cin, cout, generator=gen) / (nbr.shape[1] * cin) ** 0.5).to(dev)
             in_turns(f"K1 fwd eval {name} {cin}->{cout} x{n}", lambda lib: gemm(lib, f, nbr, w, valid), libs,
-                     smc.gathered_matmul(f, nbr, w, valid), k1_tol)
+                     smc.gathered_matmul(f, nbr, w, valid), k1_tol, args.match)
         lcfg = lidar_only_config()
         lbatch = to_torch(make_synthetic_batch(lcfg, b=2, seed=0, with_gt=True), dev)
+        b = lcfg.data.samples_per_device
+        per_step = {"other": 0.0, "tree": 0.0}
         for name, nbr, inv, valid, kin, cin, cout, n in cs.train_tables(lcfg, lbatch, dev, gen):
             dy = torch.where(valid[:, None], torch.randn(nbr.shape[0], cout, generator=gen).to(dev), 0.0)
             wt = (torch.randn(nbr.shape[1], cout, cin, generator=gen) / (nbr.shape[1] * cout) ** 0.5).to(dev)
             every = torch.ones(kin, dtype=torch.bool, device=dev)
             in_turns(f"K1 dgrad train {name} {cout}->{cin} x{n}", lambda lib: gemm(lib, dy, inv, wt, every), libs,
-                     smc.gathered_matmul(dy, inv, wt, every), k1_tol)
+                     smc.gathered_matmul(dy, inv, wt, every), k1_tol, args.match)
+            f = torch.randn(kin, cin, generator=gen).to(dev)
+            ms = in_turns(f"K1 wgrad train {name} {cin}->{cout} x{n}", lambda lib: wgrad(lib, f, nbr, dy), libs,
+                          smc.gathered_wgrad(f, nbr, dy), k1_tol, args.match)
+            for key, t in zip(("other", "tree"), ms):
+                per_step[key] += n * b * t
+        if per_step["other"]:
+            print(f"K1 wgrad per lidar_only train step (B={b}), sum of launches*ms: other "
+                  f"{per_step['other']:.4f} ms, tree {per_step['tree']:.4f} ms, "
+                  f"tree/other={per_step['tree'] / per_step['other']:.3f}", flush=True)
 
 
 if __name__ == "__main__":

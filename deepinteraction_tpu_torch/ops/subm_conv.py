@@ -24,10 +24,11 @@ The kernels replace the Pallas kernel ``deepinteraction_tpu/ops/
 sparse_conv_banded.py::_banded_kernel_call`` (forward and d/dfeat) and the
 d/dW of ``_banded_bwd``; the source notes say what bounds them on the H100
 and what their designs do about it. The forward kernel (and so d/dfeat)
-multiplies on the tensor cores in split TF32 (three TF32 products per fp32
-product) and d/dW in fp32 on CUDA cores; both keep fp32 accuracy, so they
-agree with the plain versions to fp32 summation-order error (tolerance 1e-4
-relative to the output's scale). Each wrapper counts its launches in
+and d/dW multiply on the tensor cores in split TF32 (three TF32 products
+per fp32 product) and keep fp32 accuracy, so they agree with the plain
+versions to fp32 summation-order error (tolerance 1e-4 relative to the
+output's scale). d/dW adds its per-block partials in a fixed order: two
+calls give the same bits. Each wrapper counts its launches in
 ``.launches``.
 """
 
@@ -37,7 +38,7 @@ import torch
 
 from . import cuda_lib
 
-# rows of the table one wgrad block walks (16 tiles of the kernel's 64 rows);
+# rows of the table one wgrad block walks (32 tiles of the kernel's 32 rows);
 # it sets the number of partials the second pass sums
 WGRAD_ROWS_PER_BLOCK = 1024
 

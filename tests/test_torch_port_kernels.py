@@ -23,7 +23,7 @@ from deepinteraction_tpu_torch.utils.synthetic import init_weights, make_synthet
 
 pytestmark = pytest.mark.gpu
 
-# K1 keeps fp32 accuracy (split TF32 on the tensor cores; d/dW in fp32): only
+# K1 keeps fp32 accuracy (split TF32 on the tensor cores, d/dW too): only
 # the summation order differs from the plain version, so the max error is
 # held to 1e-4 of the output's scale
 K1_TOL = 1e-4
@@ -320,6 +320,66 @@ def test_subm_conv_backward_matches_plain(cuda, k, cin, cout, table):
             continue
         err = (got - ref).abs().max().item()
         assert err <= K1_TOL * ref.abs().max().item(), err
+
+
+def _wgrad_close(feats, nbr, dy):
+    got = smc.subm_conv_wgrad(feats, nbr, dy)
+    ref = smc.gathered_wgrad(feats, nbr, dy)
+    err = (got - ref).abs().max().item()
+    assert err <= K1_TOL * ref.abs().max().item(), err
+    return got
+
+
+@pytest.mark.parametrize("ko", [1, 63, 1_025])
+@pytest.mark.parametrize("cin,cout", [(5, 40), (5, 72), (72, 40), (72, 72), (16, 16), (32, 32)])
+def test_subm_conv_wgrad_tiles(cuda, ko, cin, cout):
+    """d/dW through each output tile (16, 32, 64 and 128 wide), channel
+    counts that are not multiples of 4 or of the tile, and row counts below,
+    at and past a 32-row tile and a 1024-row chunk."""
+    rng = np.random.default_rng(ko * cin + cout)
+    k = max(ko, 40)
+    feats = rng.normal(size=(k, cin)).astype(np.float32)
+    nbr = rng.integers(0, k, size=(ko, 27)).astype(np.int32)
+    nbr[rng.uniform(size=nbr.shape) < 0.6] = k
+    dy = rng.normal(size=(ko, cout)).astype(np.float32)
+    f, n, g = (torch.from_numpy(a).to(cuda) for a in (feats, nbr, dy))
+    before = smc.subm_conv_wgrad.launches
+    _wgrad_close(f, n, g)
+    assert smc.subm_conv_wgrad.launches == before + 1
+
+
+@pytest.mark.parametrize("cin,cout", [(16, 16), (64, 64), (128, 128)])
+def test_subm_conv_wgrad_tiles_miss(cuda, cin, cout):
+    """Whole 32-row tiles that miss every tap (the kernel skips them), a tap
+    that misses everywhere (its dW is exactly 0) and negative indices."""
+    rng = np.random.default_rng(cin)
+    k = 5_000
+    feats, nbr, _, _ = _sparse_case(rng, k, cin, cout, 27, miss=0.5)
+    nbr[64:1_000] = k
+    nbr[3_000:3_070] = -1
+    nbr[:, 7] = k
+    dy = rng.normal(size=(k, cout)).astype(np.float32)
+    got = _wgrad_close(*(torch.from_numpy(a).to(cuda) for a in (feats, nbr, dy)))
+    assert torch.all(got[7] == 0)
+
+
+def test_subm_conv_wgrad_no_rows(cuda):
+    """An empty table gives dW = 0."""
+    f = torch.randn(10, 16, device=cuda)
+    got = smc.subm_conv_wgrad(f, torch.zeros(0, 27, dtype=torch.int32, device=cuda), torch.zeros(0, 32, device=cuda))
+    assert got.shape == (27, 16, 32) and torch.all(got == 0)
+
+
+def test_subm_conv_wgrad_deterministic(cuda):
+    """No atomics: two calls at a stage-3 table (30 000 sites, 128 -> 128)
+    give the same bits."""
+    coords, valid = _sites(30_000, (41, 100, 100), cuda, seed=3)
+    nbr = sc.subm_neighbor_table(sc.SparseTensor(None, coords, valid, (41, 100, 100)))
+    g = torch.Generator().manual_seed(3)
+    f = torch.randn(30_000, 128, generator=g).to(cuda)
+    dy = torch.randn(30_000, 128, generator=g).to(cuda)
+    first = _wgrad_close(f, nbr, dy)
+    assert torch.equal(first, smc.subm_conv_wgrad(f, nbr, dy))
 
 
 def test_tiny_slice_on_card_matches_cpu_path(cuda):
