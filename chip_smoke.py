@@ -66,6 +66,24 @@ blocks trained), through K1's forward and K2's forward and backward:
     the plain version on the same matching, ReLU masks, sort orders and
     dropout seed; then ms/step (2 warm-ups, 5 timed) and peak memory.
 
+The fourth slice is the DeepInteraction++ (``fusion_plusplus``) eval
+forward: Swin-T + FPN levels 0-1, the same LiDAR branch (K1's forward, 21
+launches a frame), ``FusionTransformerPP`` (deformable attention, BEVWarp,
+the polar and pillar I2P) and the V2 decoder; no K2:
+
+14. the tiny ``tiny_pp_config`` on the card against the port's CPU path
+    (which tests/test_torch_port_pp.py holds to JAX), as phase 6;
+15. full width, B=1: one frame with the launch counters set to 0 just before
+    and read just after (21 K1 launches, no other kernel); every output head
+    against the same frame with K1 swapped for its plain version, replaying
+    the kernel run's sort orders (so its proposals), within 1e-3 of scale,
+    and the trunks (the BEV map, FPN levels 0-1, the neck's outputs), where
+    K1's difference is not yet amplified, within 1e-4 of scale;
+    then ms/frame (3 warm-ups, 10 timed) and peak memory, host-clock splits
+    by module (each fenced by ``torch.cuda.synchronize()``) and a
+    ``torch.profiler`` frame for K1's device time a frame and the device's
+    busy share.
+
 A bound is the larger of the bytes (each input read once, each output
 written once) over 3.35 TB/s and the useful operations over the peak rate
 of the units the kernel multiplies on: TF32 tensor cores for every kernel
@@ -89,7 +107,14 @@ import time
 import torch
 import torch.nn.functional as F
 
-from deepinteraction_tpu_torch.configs import fusion_base_config, lidar_only_config, tiny_config, tiny_lidar_config
+from deepinteraction_tpu_torch.configs import (
+    fusion_base_config,
+    fusion_plusplus_config,
+    lidar_only_config,
+    tiny_config,
+    tiny_lidar_config,
+    tiny_pp_config,
+)
 from deepinteraction_tpu_torch.inference import get_bboxes
 from deepinteraction_tpu_torch.models import mmri_encoder, sparse_encoder
 from deepinteraction_tpu_torch.models.detector import DeepInteraction
@@ -98,6 +123,7 @@ from deepinteraction_tpu_torch.ops import local_attention as la
 from deepinteraction_tpu_torch.ops import sparse_conv as sc
 from deepinteraction_tpu_torch.ops import subm_conv as smc
 from deepinteraction_tpu_torch.ops.voxelize import voxelize
+from deepinteraction_tpu_torch.profile_train import fenced_module_times
 from deepinteraction_tpu_torch.train.step import TrainStep
 from deepinteraction_tpu_torch.utils.synthetic import init_weights, make_synthetic_batch, to_torch
 
@@ -107,6 +133,9 @@ K1_TOL = 1e-4  # max|kernel - plain| / max|plain|
 K2_TOL = 2e-5  # absolute and relative, as torch.testing.assert_close
 K2_BWD_TOL = 1e-4  # max|kernel - plain| / max|plain| for each of dq, dk, dv
 SLICE_TOL = 1e-3  # max|d| / max|plain| for the BEV map and MMRI outputs
+# phase 15's trunks, K1 against plain: 2.7e-5 of scale on an H100 (K1's
+# split-TF32 sums), before the decoder's MMPI blocks amplify it ~30x
+PP_TRUNK_TOL = 1e-4
 TINY_RTOL, TINY_ATOL = 2e-3, 5e-4  # the golden fixtures' tolerance
 # the train step's tolerance in tests/test_torch_port_train.py: losses and
 # grad norm rtol 1e-3, each gradient leaf 1e-3 of its scale (a leaf whose
@@ -395,9 +424,8 @@ def headline(rec: dict, shape: str) -> dict:
             "shapes": rec["shapes"]}
 
 
-def check_tiny(dev):
-    """The tiny config on the card (kernels) vs the port's CPU path."""
-    cfg = tiny_config()
+def check_tiny(dev, cfg, name: str):
+    """A tiny config on the card (kernels) vs the port's CPU path."""
     model = DeepInteraction(cfg.model, cfg.data.padded_img_shape, cfg.test_num_proposals).eval()
     init_weights(model, seed=7)
     np_batch = make_synthetic_batch(cfg, b=1, seed=7)
@@ -409,7 +437,7 @@ def check_tiny(dev):
             assert torch.equal(g, want), key
         else:
             torch.testing.assert_close(g, want, rtol=TINY_RTOL, atol=TINY_ATOL, msg=key)
-    log(f"tiny_config slice on the card == CPU path on {len(ref)} heads "
+    log(f"{name} slice on the card == CPU path on {len(ref)} heads "
         f"(rtol {TINY_RTOL}, atol {TINY_ATOL}; labels and masks exact)")
 
 
@@ -802,7 +830,7 @@ def run_slice(dev, gen):
 
     k1 = check_k1(cfg, batch, dev, gen)
     k2 = check_k2(dev, gen)
-    check_tiny(dev)
+    check_tiny(dev, tiny_config(), "tiny_config")
 
     smc.subm_conv_gemm.launches = 0
     la.local_attn_fwd.launches = 0
@@ -856,6 +884,159 @@ def run_slice(dev, gen):
     return k1, k2, launches
 
 
+def module_splits(model, fn, names, runs: int = 3) -> dict:
+    """Median host-clock ms of each module in ``names`` over ``runs`` calls
+    of ``fn`` (each forward fenced by ``torch.cuda.synchronize()``), and of
+    the whole call (``total``)."""
+    total = []
+    with fenced_module_times(model, names) as times:
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            total.append((time.perf_counter() - t0) * 1e3)
+    return {"total": statistics.median(total), **{n: statistics.median(v) for n, v in times.items()}}
+
+
+def tensors(x) -> list:
+    """The tensors of a nest of lists and tuples, in order."""
+    return [x] if torch.is_tensor(x) else [t for y in x for t in tensors(y)]
+
+
+def run_pp(dev):
+    """Phases 14-15: the fusion_plusplus eval forward, B=1, full width."""
+    check_tiny(dev, tiny_pp_config(), "tiny_pp_config")
+    cfg = fusion_plusplus_config()
+    p = cfg.test_num_proposals
+    model = DeepInteraction(cfg.model, cfg.data.padded_img_shape, p).to(dev).eval()
+    init_weights(model, seed=0)
+    batch = to_torch(make_synthetic_batch(cfg, b=1, seed=0), dev)
+    counted = (smc.subm_conv_gemm, smc.subm_conv_dgrad, smc.subm_conv_wgrad, la.local_attn_fwd, la.local_attn_bwd)
+
+    # the trunks' outputs, compared beside the heads
+    trunks = ("pts_middle_encoder", "img_neck", "imgpts_neck")
+    captured = {}
+    hooks = [model.get_submodule(n).register_forward_hook(lambda m, a, o, n=n: captured.__setitem__(n, o))
+             for n in trunks]
+    orders, flips = [], []
+    for c in counted:
+        c.launches = 0
+    with sort_orders(orders, False, flips):
+        preds = model(batch)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counted}
+    kern = dict(captured)
+    log(f"fusion_plusplus eval launches per frame: {launches}")
+    assert launches == {"subm_conv_gemm": 21, "subm_conv_dgrad": 0, "subm_conv_wgrad": 0,
+                        "local_attn_fwd": 0, "local_attn_bwd": 0}, launches
+    det = get_bboxes(preds, cfg.model.pts_bbox_head, cfg.model.bbox_coder, p)
+    for name, t in list(preds.items()) + list(det._asdict().items()):
+        assert torch.isfinite(t.float()).all(), f"non-finite {name}"
+    n_mmpi = cfg.model.pts_bbox_head.num_mmpi
+    assert det.boxes.shape == (1, p, 9) and preds["heatmap"].shape == (1, n_mmpi * p, 10)
+    assert preds["on_image_masks"].shape == (n_mmpi, 1, p)
+    log(f"fusion_plusplus detections: boxes {tuple(det.boxes.shape)} finite, kept {int(det.keep.sum())}, "
+        f"score max {det.scores.max().item():.4f}; queries on an image after each MMPI layer: "
+        f"{preds['on_image_masks'].sum((1, 2)).tolist()} of {p}")
+
+    # K1 swapped for its plain version, replaying the kernel run's sort
+    # orders (the proposals are a sort of the heatmap)
+    with plain_kernels(), sort_orders(orders, True, flips):
+        plain = model(batch)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    del orders
+    # the trunks (the sparse encoder's BEV map, FPN levels 0-1, the neck's
+    # three outputs) and each MMPI layer's heads, for where a difference grows
+    trunk_err = {f"{n}[{i}]": rel_err(a, b)[1] for n in trunks
+                 for i, (a, b) in enumerate(zip(tensors(kern[n]), tensors(captured[n])))}
+    log(f"fusion_plusplus eval, K1 kernels vs plain, trunks (max rel err, tolerance {PP_TRUNK_TOL}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in trunk_err.items()))
+    problems = [f"trunk {k}: kernels vs plain max rel err {v:.3e} > {PP_TRUNK_TOL}"
+                for k, v in trunk_err.items() if v > PP_TRUNK_TOL]
+    per_head = {}
+    for key, want in plain.items():
+        if want.is_floating_point():
+            rel = rel_err(preds[key], want)[1]
+            per_head[key] = rel
+            if rel > SLICE_TOL:
+                problems.append(f"{key}: kernels vs plain max rel err {rel:.3e} > {SLICE_TOL}")
+        elif not torch.equal(preds[key], want):
+            problems.append(f"{key}: kernels vs plain differ")
+    layers = list(zip(preds["heatmap"].chunk(n_mmpi, 1), plain["heatmap"].chunk(n_mmpi, 1)))
+    by_layer = [rel_err(a, b)[1] for a, b in layers]
+    # how many queries carry the worst layer's difference
+    a, b = layers[max(range(n_mmpi), key=by_layer.__getitem__)]
+    per_query = ((a - b).abs().amax(-1) / b.abs().max())[0]
+    log(f"fusion_plusplus eval, K1 kernels vs plain: {len(plain)} heads (tolerance {SLICE_TOL} of scale; "
+        f"labels and on-image masks exact): " + ", ".join(f"{k} {v:.3e}" for k, v in per_head.items())
+        + f"; the heatmap head by MMPI layer: {', '.join(f'{v:.3e}' for v in by_layer)} (worst layer: "
+        f"{int((per_query > 1e-4).sum())} of {p} queries above 1e-4 of scale, second largest "
+        f"{per_query.topk(2).values[1].item():.3e}); sort calls whose own "
+        f"order differed from the kernel run's: {sum(flips)} of {len(flips)}; checks failed: {len(problems)}")
+    assert not problems, problems
+    del preds, plain, det, kern, captured
+
+    def frame():
+        get_bboxes(model(batch), cfg.model.pts_bbox_head, cfg.model.bbox_coder, p)
+
+    for _ in range(WARMUP):
+        frame()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms = statistics.median(times)
+    log(f"fusion_plusplus eval + get_bboxes, B=1: ms/frame median {ms:.3f} "
+        f"(min {min(times):.3f}, max {max(times):.3f}, {REPS} runs after {WARMUP} warm-ups); "
+        f"peak memory allocated {peak / 2**30:.3f} GiB")
+
+    # host-clock splits: (label, modules whose forward it sums)
+    layers = range(cfg.model.imgpts_neck.num_layers)
+    groups = (
+        ("Swin-T", ("img_backbone",)),
+        ("FPN", ("img_neck",)),
+        ("sparse encoder", ("pts_middle_encoder",)),
+        ("SECOND + SECONDFPN", ("pts_backbone", "pts_neck")),
+        ("FusionTransformerPP", ("imgpts_neck",)),
+        ("  image layers", tuple(f"imgpts_neck.img_layer{i}" for i in layers)),
+        ("  pts layers", tuple(f"imgpts_neck.pts_layer{i}" for i in layers)),
+        ("    polar I2P", tuple(f"imgpts_neck.pts_layer{i}.polar_i2p" for i in layers)),
+        ("    pillar I2P", tuple(f"imgpts_neck.pts_layer{i}.i2p" for i in layers)),
+        ("decoder", ("pts_bbox_head",)),
+    )
+    split = module_splits(model, frame, [n for _, mods in groups for n in mods])
+    parts = {label: sum(split[n] for n in mods) for label, mods in groups}
+    top = sum(v for k, v in parts.items() if not k.startswith(" "))
+    log("fusion_plusplus eval host-clock splits (median of 3 frames, each module fenced by synchronize): "
+        f"frame {split['total']:.3f} ms = " + ", ".join(f"{k.strip()} {v:.3f}" for k, v in parts.items())
+        + f", voxelization, pillars, get_bboxes and the rest {split['total'] - top:.3f}")
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3
+    device = k1_ms = 0.0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation:
+            dt = ev.time_range.elapsed_us() / 1e3
+            device += dt
+            k1_ms += dt if "subm_conv" in ev.name else 0.0
+    log(f"fusion_plusplus eval under torch.profiler, one frame: window {window:.3f} ms, device time "
+        f"{device:.3f} ms (busy {100 * device / window:.1f} %), K1 subm_conv_gemm device time {k1_ms:.4f} ms")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -881,13 +1062,15 @@ def main() -> int:
     k1_eval, k2, eval_launches = run_slice(dev, gen)
     k1, train_launches = run_lidar(dev, gen)
     k2b, fusion_launches = run_fusion_train(dev, gen)
+    pp_launches = run_pp(dev)
 
     src = "deepinteraction_tpu_torch/csrc/subm_conv.cu"
     eval_path, train_path = "fusion_base eval, B=1", "lidar_only train step, B=2"
-    fusion_path = "fusion_base train step, B=2"
+    fusion_path, pp_path = "fusion_base train step, B=2", "fusion_plusplus eval, B=1"
 
     def by_path(name, eval_n=0):
-        return {eval_path: eval_n, train_path: train_launches.get(name, 0), fusion_path: fusion_launches[name]}
+        return {eval_path: eval_n, train_path: train_launches.get(name, 0), fusion_path: fusion_launches[name],
+                pp_path: pp_launches[name]}
 
     fwd = dict(k1["fwd"], shapes=k1_eval["shapes"] + k1["fwd"]["shapes"], ms_per_frame=k1_eval["ms_per_frame"],
                max_abs_err=max(k1_eval["max_abs_err"], k1["fwd"]["max_abs_err"]))

@@ -18,7 +18,8 @@ from .base import (
     SparseEncoderConfig,
     VoxelizationConfig,
 )
-from .fusion_base import fusion_base_config, lidar_only_config, tiny_config, tiny_lidar_config
+from .fusion_base import fusion_base_config, lidar_only_config, tiny_config, tiny_lidar_config, tiny_pp_config
+from .fusion_plusplus import fusion_plusplus_config
 
 __all__ = [
     "AssignerConfig",
@@ -36,7 +37,9 @@ __all__ = [
     "SparseEncoderConfig",
     "VoxelizationConfig",
     "fusion_base_config",
+    "fusion_plusplus_config",
     "lidar_only_config",
     "tiny_config",
     "tiny_lidar_config",
+    "tiny_pp_config",
 ]

@@ -5,7 +5,9 @@
 reference's DeepInteraction-base experiment
 (``projects/configs/nuscenes/Fusion_0075_refactor.py``); ``tiny_config`` the
 same topology at tiny capacities for tests; ``lidar_only_config`` and
-``tiny_lidar_config`` the cameras-disabled TransFusion-L detector.
+``tiny_lidar_config`` the cameras-disabled TransFusion-L detector;
+``tiny_pp_config`` the DeepInteraction++ topology at tiny capacities (the
+full-size one is ``fusion_plusplus.py``).
 """
 
 from __future__ import annotations
@@ -226,5 +228,26 @@ def tiny_lidar_config() -> Config:
         pts_bbox_head=dataclasses.replace(
             cfg.model.pts_bbox_head, lidar_only=True, num_mmpi=0
         ),
+    )
+    return dataclasses.replace(cfg, model=model)
+
+
+def tiny_pp_config() -> Config:
+    """Tiny DeepInteraction++ topology (FusionTransformer neck, polar I2P,
+    V2 MMPI blocks) for tests and dry-runs."""
+    cfg = tiny_config()
+    model = dataclasses.replace(
+        cfg.model,
+        imgpts_neck=dataclasses.replace(
+            cfg.model.imgpts_neck,
+            variant="pp",
+            num_layers=1,
+            num_levels=2,
+            num_heads=4,
+            use_polar_i2p=True,
+            polar_radius_range=(1.0, 9.0, 1.0),
+            polar_num_z_bins=4,
+        ),
+        pts_bbox_head=dataclasses.replace(cfg.model.pts_bbox_head, variant="pp"),
     )
     return dataclasses.replace(cfg, model=model)

@@ -1,8 +1,15 @@
-"""MMPI decoder head, v1 (port of ``deepinteraction_tpu/models/decoder.py``):
+"""MMPI decoder head (port of ``deepinteraction_tpu/models/decoder.py``):
 heatmap-initialised queries, a transformer layer against the BEV tokens,
 then alternating image / LiDAR predictive-interaction blocks. In LiDAR-only
 mode (TransFusion-L) there is one heatmap head and no MMPI block: the
 initial layer is the output.
+
+The DeepInteraction++ variant (``cfg.variant == "pp"``) swaps the blocks'
+trunk for the dual-branch ``RCNNCoreV2``, feeds the prediction heads the
+cross feature only (``c`` wide, not ``2c``), moves the query centres by the
+look-forward update, and keeps one cumulative on-image mask per MMPI layer
+(odd layers inherit the last one), with which every layer falls back to
+the initial predictions.
 
 - ``train=True`` normalises with batch statistics and applies the
   attention dropout of the JAX ``TransformerDecoderLayer`` and of the MMPI
@@ -128,6 +135,56 @@ class RCNNCore(nn.Module):
         return self.norm3(q + y)
 
 
+class RCNNCoreV2(nn.Module):
+    """The ++ dual-branch trunk: self-attention + norm (the branch point);
+    DynamicConv and an FFN on the cross branch; a separate FFN on the self
+    branch; ``cross * scale + self * self_scale``.
+
+    The reference's combine broadcasts (its self branch is still seq-first
+    when added): every query receives the self-branch value of the *first*
+    query of its attention group, which the caller passes as
+    ``self_contrib`` [B, P or 1, C]; by default query 0's (the point
+    block). Released ++ checkpoints were trained with it, so it is kept."""
+
+    def __init__(self, c: int, num_heads: int, dropout: float = 0.0):
+        super().__init__()
+        self.self_attn = TorchMHA(c, num_heads, dropout)
+        self.norm1 = nn.LayerNorm(c)
+        self.dyconv = DynamicConv(c, c)
+        self.norm2 = nn.LayerNorm(c)
+        self.norm3 = nn.LayerNorm(c)
+        self.ffn_fc0 = nn.Linear(c, 4 * c)
+        self.ffn_fc1 = nn.Linear(4 * c, c)
+        self.self_ffn_fc0 = nn.Linear(c, 4 * c)
+        self.self_ffn_fc1 = nn.Linear(4 * c, c)
+        self.self_norm = nn.LayerNorm(c)
+        self.scale = nn.Parameter(torch.full((1,), 0.5))
+        self.self_scale = nn.Parameter(torch.full((1,), 0.5))
+
+    def norm1_block(self, query_feat, key_mask=None, attn_mask=None, train: bool = False, generator=None):
+        """Self-attention + residual + norm1 (the branch point)."""
+        y = self.self_attn(query_feat, query_feat, query_feat, key_mask=key_mask, attn_mask=attn_mask,
+                           train=train, generator=generator)
+        return self.norm1(query_feat + y)
+
+    def self_branch(self, q1):
+        return self.self_norm(q1 + self.self_ffn_fc1(F.relu(self.self_ffn_fc0(q1))))
+
+    def forward(self, query_feat, roi_feats, attn_mask=None, train: bool = False, generator=None,
+                self_contrib=None):
+        q = self.norm1_block(query_feat, attn_mask=attn_mask, train=train, generator=generator)
+        if self_contrib is None:
+            self_contrib = self.self_branch(q)[..., :1, :]
+        q = self.norm2(q + self.dyconv(q, roi_feats))
+        q = self.norm3(q + self.ffn_fc1(F.relu(self.ffn_fc0(q))))
+        return q * self.scale + self_contrib * self.self_scale
+
+
+def _rcnn_core(cfg: DecoderConfig) -> nn.Module:
+    core = RCNNCoreV2 if cfg.variant == "pp" else RCNNCore
+    return core(cfg.hidden_channel, cfg.num_heads, cfg.dropout)
+
+
 class ImageRCNNBlock(nn.Module):
     """Project query boxes into every view; refine each on-image query
     against an ROI crop of the last view it lands on."""
@@ -135,7 +192,7 @@ class ImageRCNNBlock(nn.Module):
     def __init__(self, cfg: DecoderConfig, coder: TransFusionBBoxCoder, input_shape):
         super().__init__()
         self.cfg, self.coder, self.input_shape = cfg, coder, tuple(input_shape)
-        self.core = RCNNCore(cfg.hidden_channel, cfg.num_heads, cfg.dropout)
+        self.core = _rcnn_core(cfg)
 
     def forward(self, query_feat, res_layer, img_feats, batch, train: bool = False, generator=None):
         b, p, c = query_feat.shape
@@ -178,7 +235,20 @@ class ImageRCNNBlock(nn.Module):
         # query i attends the queries on its winning view (diagonal kept on)
         attn_mask = torch.gather(on_img, 1, sel[:, :, None].expand(b, p, p))
         attn_mask = attn_mask | torch.eye(p, dtype=torch.bool, device=on_img.device)[None]
-        refined = self.core(query_feat, rois, attn_mask, train, generator)
+        if self.cfg.variant == "pp":
+            # the broadcast quirk (RCNNCoreV2): a query's self term is the
+            # self branch of the first on-image query of its winning view,
+            # computed with that view's key set
+            qf_v = query_feat[:, None].expand(b, v, p, c).reshape(b * v, p, c)
+            q1 = self.core.norm1_block(qf_v, key_mask=on_img.reshape(b * v, p), train=train,
+                                       generator=generator)
+            jstar = on_img.int().argmax(2).reshape(b * v)  # the first on-image query
+            q1_star = q1[torch.arange(b * v, device=q1.device), jstar]
+            s_view = self.core.self_branch(q1_star).reshape(b, v, c)
+            self_contrib = torch.gather(s_view, 1, sel[..., None].expand(b, p, c))
+            refined = self.core(query_feat, rois, attn_mask, train, generator, self_contrib)
+        else:
+            refined = self.core(query_feat, rois, attn_mask, train, generator)
         return torch.where(any_on[..., None], refined, refined.new_zeros(())), eff
 
 
@@ -188,7 +258,7 @@ class PointRCNNBlock(nn.Module):
     def __init__(self, cfg: DecoderConfig, coder: TransFusionBBoxCoder):
         super().__init__()
         self.coder = coder
-        self.core = RCNNCore(cfg.hidden_channel, cfg.num_heads, cfg.dropout)
+        self.core = _rcnn_core(cfg)
 
     def forward(self, query_feat, res_layer, bev_feat, train: bool = False, generator=None):
         b, p, c = query_feat.shape
@@ -207,15 +277,12 @@ class PointRCNNBlock(nn.Module):
 
 
 class Decoder(nn.Module):
-    """Full MMPI head (v1), or the LiDAR-only head (``cfg.lidar_only``)."""
+    """Full MMPI head (v1 or ++), or the LiDAR-only head (``cfg.lidar_only``)."""
 
     def __init__(self, cfg: DecoderConfig, coder_cfg: BBoxCoderConfig, input_shape):
         super().__init__()
-        if cfg.variant != "v1":
-            raise NotImplementedError(
-                "only the v1 decoder is ported (ROADMAP queue 1: the "
-                "DeepInteraction++ decoder)"
-            )
+        if cfg.variant not in ("v1", "pp"):
+            raise ValueError(f"unknown decoder variant {cfg.variant!r}")
         self.cfg = cfg
         c, n_cls = cfg.hidden_channel, cfg.num_classes
         self.coder = TransFusionBBoxCoder(coder_cfg)
@@ -233,7 +300,8 @@ class Decoder(nn.Module):
                 self.add_module(f"mmpi{i}_img", ImageRCNNBlock(cfg, self.coder, input_shape))
             else:
                 self.add_module(f"mmpi{i}_pts", PointRCNNBlock(cfg, self.coder))
-            self.add_module(f"mmpi{i}_pred", PredictionFFN(2 * c, heads))
+            # v1's heads take concat(cross, prev); ++'s the cross feature only
+            self.add_module(f"mmpi{i}_pred", PredictionFFN(c if cfg.variant == "pp" else 2 * c, heads))
 
     def forward(self, pts_inputs: Tuple[torch.Tensor, torch.Tensor], img_feats, batch,
                 num_proposals: int | None = None, train: bool = False,
@@ -289,6 +357,8 @@ class Decoder(nn.Module):
 
         ret_dicts: List[Dict[str, torch.Tensor]] = []
         on_image_masks: List[torch.Tensor] = []
+        pp = cfg.variant == "pp"
+        query_pos_look_forward = res_layer["center"].detach()
         for i in range(cfg.num_mmpi):
             prev_query_feat = query_feat
             query_pos = res_layer["center"].detach()
@@ -300,10 +370,22 @@ class Decoder(nn.Module):
                 query_feat, eff_view = getattr(self, f"mmpi{i}_pts")(
                     prev_query_feat, res_layer, new_lidar_feat, train, generator
                 )
-            res_layer = getattr(self, f"mmpi{i}_pred")(torch.cat([query_feat, prev_query_feat], -1), train)
-            res_layer["center"] = res_layer["center"] + query_pos
-            if i % 2 == 0:
-                on_img = eff_view >= 0
+            pred_in = query_feat if pp else torch.cat([query_feat, prev_query_feat], -1)
+            res_layer = getattr(self, f"mmpi{i}_pred")(pred_in, train)
+            if pp:
+                # look-forward centre update; the delta keeps its gradient
+                pred_delta = res_layer["center"]
+                res_layer["center"] = pred_delta + query_pos_look_forward
+                query_pos_look_forward = pred_delta + query_pos
+            else:
+                res_layer["center"] = res_layer["center"] + query_pos
+            if pp or i % 2 == 0:
+                if i % 2 == 1:  # ++: a point layer inherits the last mask
+                    on_img = on_image_masks[-1]
+                else:
+                    on_img = eff_view >= 0
+                    if pp and on_image_masks:  # ++: cumulative
+                        on_img = on_img & on_image_masks[-1]
                 on_image_masks.append(on_img)
                 # off-image queries fall back to the initial predictions
                 res_layer = {

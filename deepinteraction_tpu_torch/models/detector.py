@@ -4,6 +4,11 @@ detector.py``).
 - ``fusion_base``, eval and train: dual voxelization, sparse middle
   encoder, SECOND + SECONDFPN, ResNet + FPN, the MMRI v1 encoder and the
   MMPI v1 decoder.
+- DeepInteraction++ (``imgpts_neck.variant == "pp"``, ``fusion_plusplus``),
+  eval: the same LiDAR branch, the image backbone the config names (Swin-T
+  there) + FPN levels 0-1, ``FusionTransformerPP`` on those two levels and
+  on all three SECONDFPN maps, and the V2 MMPI decoder. Its train step is
+  not ported yet (ROADMAP queue 1): ``train=True`` raises.
 - LiDAR-only (``cfg.lidar_only``, TransFusion-L), eval and train: one
   voxelization, the sparse encoder, SECOND + SECONDFPN, ``shared_conv`` and
   the query decoder with one heatmap head and no MMPI block.
@@ -32,26 +37,31 @@ from ..configs import ModelConfig
 from ..ops.voxelize import hard_simple_vfe, voxelize_batched
 from .decoder import Decoder
 from .fpn import FPN
+from .fusion_transformer import FusionTransformerPP
 from .layers import Conv2d
 from .mmri_encoder import MMRIEncoder
 from .resnet import ResNet
 from .second import SECOND, SECONDFPN
 from .sparse_encoder import SparseEncoder
+from .swin import SwinTransformer
 
 
 class DeepInteraction(nn.Module):
     def __init__(self, cfg: ModelConfig, input_shape, num_proposals: int | None = None):
         super().__init__()
-        if not cfg.lidar_only and (cfg.imgpts_neck.variant == "pp" or cfg.img_backbone.type != "resnet"):
-            raise NotImplementedError(
-                "the DeepInteraction++ path (Swin, FusionTransformerPP) is not "
-                "ported yet (ROADMAP queue 1)"
-            )
         self.cfg = cfg
         self.input_shape = tuple(input_shape)
         self.num_proposals = num_proposals
         if not cfg.lidar_only:
-            self.img_backbone = ResNet(cfg.img_backbone.depth, cfg.img_backbone.out_indices)
+            ib = cfg.img_backbone
+            if ib.type == "resnet":
+                self.img_backbone = ResNet(ib.depth, ib.out_indices)
+            elif ib.type == "swin":
+                self.img_backbone = SwinTransformer(ib.embed_dims, ib.depths, ib.num_heads, ib.window_size,
+                                                    ib.out_indices, ib.drop_path_rate, ib.drop_rate,
+                                                    ib.attn_drop_rate)
+            else:
+                raise ValueError(f"unknown image backbone {ib.type!r}")
             self.img_neck = FPN(
                 [self.img_backbone.out_channels[i] for i in cfg.img_backbone.out_indices],
                 cfg.img_neck.out_channels,
@@ -66,6 +76,15 @@ class DeepInteraction(nn.Module):
         if cfg.lidar_only:
             c = cfg.pts_bbox_head.hidden_channel
             self.shared_conv = Conv2d(sum(cfg.pts_neck.out_channels), c, 3, 1, 1)
+        elif cfg.imgpts_neck.variant == "pp":
+            self.imgpts_neck = FusionTransformerPP(
+                cfg.imgpts_neck,
+                cfg.img_neck.out_channels,
+                sum(cfg.pts_neck.out_channels),
+                cfg.pts_neck.out_channels[0],
+                cfg.pts_voxel_layer.point_cloud_range,
+                self.input_shape,
+            )
         else:
             self.imgpts_neck = MMRIEncoder(
                 cfg.imgpts_neck,
@@ -80,6 +99,9 @@ class DeepInteraction(nn.Module):
                 generator: torch.Generator | None = None) -> Dict[str, torch.Tensor]:
         fn = self._lidar_only if self.cfg.lidar_only else self._fusion
         if train:
+            if not self.cfg.lidar_only and self.cfg.imgpts_neck.variant == "pp":
+                raise NotImplementedError("the DeepInteraction++ train step is not ported yet "
+                                          "(ROADMAP queue 1); only its eval forward is")
             return fn(batch, True, generator)
         with torch.no_grad():
             return fn(batch, False, None)
@@ -105,17 +127,20 @@ class DeepInteraction(nn.Module):
                                   train=train, generator=generator)
 
     def _fusion(self, batch, train: bool, generator):
-        """JAX ``DeepInteraction.__call__`` (v1): image branch, LiDAR BEV,
-        I2P pillars, the MMRI encoder, then the MMPI decoder."""
+        """JAX ``DeepInteraction.__call__``: image branch, LiDAR BEV, I2P
+        pillars, the MMRI encoder (v1) or ``FusionTransformerPP`` (++), then
+        the MMPI decoder."""
         cfg = self.cfg
         b, v = batch["images"].shape[:2]
+        pp = cfg.imgpts_neck.variant == "pp"
 
         imgs = batch["images"].reshape(b * v, *batch["images"].shape[2:])
-        feats = self.img_backbone(imgs, train and cfg.img_backbone.frozen_stages < 0)
-        fpn0 = self.img_neck(feats, num_levels=1)[0]
-        img_feats = fpn0.reshape(b, v, *fpn0.shape[1:])
+        train_img = train and cfg.img_backbone.frozen_stages < 0
+        feats = self.img_backbone(imgs, train_img, generator)
+        # ++ reads FPN levels 0-1, v1 level 0
+        img_feats = [f.reshape(b, v, *f.shape[1:]) for f in self.img_neck(feats, num_levels=2 if pp else 1)]
 
-        pts_feats = self._lidar_bev(batch, train)[0]
+        neck_outs = self._lidar_bev(batch, train)
 
         pl = cfg.pts_pillar_layer
         cap = pl.max_voxels[0] if train else pl.max_voxels[1]
@@ -131,6 +156,9 @@ class DeepInteraction(nn.Module):
             pillar_coords=po.coords,
             pillar_valid=torch.arange(cap, device=imgs.device)[None] < po.num_voxels[:, None],
         )
-        new_img, (pts_conv, new_pts) = self.imgpts_neck(img_feats, pts_feats, mmri_batch, train)
+        if pp:
+            new_img, (pts_conv, new_pts) = self.imgpts_neck(img_feats, neck_outs, mmri_batch, train, generator)
+        else:
+            new_img, (pts_conv, new_pts) = self.imgpts_neck(img_feats[0], neck_outs[0], mmri_batch, train)
         return self.pts_bbox_head((pts_conv, new_pts), new_img, mmri_batch, num_proposals=self.num_proposals,
                                   train=train, generator=generator)

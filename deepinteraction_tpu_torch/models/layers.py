@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.dropout import apply_dropout
+
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` applied to an NHWC tensor; returns NHWC."""
@@ -147,9 +149,7 @@ class TorchMHA(nn.Module):
             logits = torch.where(attn_mask[:, None, :, :], logits, ninf)
         attn = torch.softmax(logits, dim=-1)
         attn = torch.nan_to_num(attn, nan=0.0)
-        if train and self.dropout > 0.0:
-            keep = torch.empty_like(attn).bernoulli_(1.0 - self.dropout, generator=generator)
-            attn = attn * keep / (1.0 - self.dropout)
+        attn = apply_dropout(attn, self.dropout, train, generator)
         out = torch.einsum("bhls,bshd->blhd", attn, vp).reshape(b, l, e)
         return self.out_proj(out)
 
@@ -170,3 +170,40 @@ class MLP1d(nn.Module):
         for i in range(self.num_layers - 1):
             x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"fc{i}")(x), train))
         return self.out(x)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth (JAX ``DropPath``): in train mode each sample's
+    residual branch is kept with probability ``1 - rate`` and scaled by
+    ``1 / (1 - rate)``, the draw taken from the caller's generator; in eval
+    the identity."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if self.rate == 0.0 or not train:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.empty((x.shape[0],) + (1,) * (x.dim() - 1), device=x.device)
+        mask = mask.bernoulli_(keep, generator=generator).bool()
+        return torch.where(mask, x / keep, x.new_zeros(()))
+
+
+class TransFFN(nn.Module):
+    """mmcv FFN with its residual (JAX ``fusion_transformer.TransFFN``):
+    ``x + fc1(dropout(relu(fc0(x))))``, dropout in train mode only."""
+
+    def __init__(self, c: int, feedforward: int, dropout: float = 0.0):
+        super().__init__()
+        self.dropout = dropout
+        self.fc0 = nn.Linear(c, feedforward)
+        self.fc1 = nn.Linear(feedforward, c)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        y = F.relu(self.fc0(x))
+        y = apply_dropout(y, self.dropout, train, generator)
+        return x + apply_dropout(self.fc1(y), self.dropout, train, generator)

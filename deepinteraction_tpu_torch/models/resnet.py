@@ -85,7 +85,9 @@ class ResNet(nn.Module):
                 cin = w * block.expansion
         self.out_channels = tuple(w * block.expansion for w in WIDTHS)
 
-    def forward(self, x: torch.Tensor, train: bool = False):
+    def forward(self, x: torch.Tensor, train: bool = False, generator=None):
+        """``generator`` is unused (ResNet has no dropout); it keeps the
+        call the same as ``SwinTransformer``'s."""
         x = F.relu(self.bn1(self.conv1(x), train))
         x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
         outs = []

@@ -20,6 +20,7 @@ Prints one JSON object as its last line. Fails without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -43,32 +44,45 @@ MODULES = {
 }
 
 
-def timed_step(step: TrainStep, batch, seed: int, modules) -> dict:
-    """One step with host-clock splits fenced by synchronize (ms) around
-    each of ``modules``' forward and each phase of the step."""
-    model, cfg = step.model, step.cfg
-    marks = {}
+@contextlib.contextmanager
+def fenced_module_times(model: torch.nn.Module, names):
+    """Within the block, the host-clock ms of each forward of the submodules
+    ``names``, each fenced by ``torch.cuda.synchronize()``: yields
+    ``{name: [ms, ...]}``, one entry a call."""
+    times = {n: [] for n in names}
+    starts = {}
 
     def pre(name):
         def hook(*_):
             torch.cuda.synchronize()
-            marks[name] = time.perf_counter()
+            starts[name] = time.perf_counter()
         return hook
 
     def post(name):
         def hook(*_):
             torch.cuda.synchronize()
-            marks[name] = (time.perf_counter() - marks[name]) * 1e3
+            times[name].append((time.perf_counter() - starts[name]) * 1e3)
         return hook
 
     handles = []
-    for name in modules:
+    for name in names:
         mod = model.get_submodule(name)
         handles += [mod.register_forward_pre_hook(pre(name)), mod.register_forward_hook(post(name))]
+    try:
+        yield times
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def timed_step(step: TrainStep, batch, seed: int, modules) -> dict:
+    """One step with host-clock splits fenced by synchronize (ms) around
+    each of ``modules``' forward and each phase of the step."""
+    model, cfg = step.model, step.cfg
     m = cfg.model
     gt = (batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"])
     heads = (m.pts_bbox_head, m.bbox_coder, m.assigner, bev_shape(cfg))
-    try:
+    with fenced_module_times(model, modules) as marks:
         torch.cuda.synchronize()
         t = [time.perf_counter()]
         step.opt.zero_grad(set_to_none=True)
@@ -88,13 +102,10 @@ def timed_step(step: TrainStep, batch, seed: int, modules) -> dict:
         step.update(torch.sqrt(sq))
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-    finally:
-        for h in handles:
-            h.remove()
     ms = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
     out = {"forward": ms[0]}
-    out.update({f"  {name}": marks[name] for name in modules})
-    out["  voxelize and the rest of the forward"] = ms[0] - sum(marks[n] for n in modules)
+    out.update({f"  {name}": marks[name][0] for name in modules})
+    out["  voxelize and the rest of the forward"] = ms[0] - sum(marks[n][0] for n in modules)
     out.update({"matching and targets": ms[1], "loss": ms[2], "backward": ms[3],
                 "grad norm, clip and AdamW": ms[4], "step": sum(ms)})
     return out

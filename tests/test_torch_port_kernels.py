@@ -1,7 +1,7 @@
 """The port's CUDA kernels (K1 subm_conv_gemm with its backward, d/dfeat
 over the inverse table and subm_conv_wgrad; K2 local_attn_fwd and its
 backward local_attn_bwd) against their plain PyTorch versions, on the card,
-alone and inside the tiny slice.
+alone and inside the tiny slices (``fusion_base`` and DeepInteraction++).
 
 Marked ``gpu``: each test skips where ``torch.cuda.is_available()`` is false
 (the decision is taken inside the fixture, never at import). On a machine
@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from deepinteraction_tpu_torch.configs import tiny_config
+from deepinteraction_tpu_torch.configs import tiny_config, tiny_pp_config
 from deepinteraction_tpu_torch.models.detector import DeepInteraction
 from deepinteraction_tpu_torch.ops import local_attention as la
 from deepinteraction_tpu_torch.ops import sparse_conv as sc
@@ -394,6 +394,26 @@ def test_tiny_slice_on_card_matches_cpu_path(cuda):
     got = model.to(cuda)(to_torch(np_batch, cuda))
     assert smc.subm_conv_gemm.launches - k1 == 21
     assert la.local_attn_fwd.launches - k2 == 3 * cfg.model.imgpts_neck.num_layers
+    for key, want in ref.items():
+        if key in ("query_labels", "on_image_masks"):
+            assert torch.equal(got[key].cpu(), want), key
+        else:
+            torch.testing.assert_close(got[key].cpu(), want, rtol=2e-3, atol=5e-4, msg=key)
+
+
+def test_tiny_pp_on_card_matches_cpu_path(cuda):
+    """The tiny_pp_config (DeepInteraction++) forward on the card, through
+    K1 and no K2, equals the CPU path (which tests/test_torch_port_pp.py
+    holds to JAX) at the golden tolerance."""
+    cfg = tiny_pp_config()
+    model = DeepInteraction(cfg.model, cfg.data.padded_img_shape, cfg.test_num_proposals).eval()
+    init_weights(model, seed=7)
+    np_batch = make_synthetic_batch(cfg, b=1, seed=7)
+    ref = model(to_torch(np_batch, "cpu"))
+    k1, k2 = smc.subm_conv_gemm.launches, la.local_attn_fwd.launches
+    got = model.to(cuda)(to_torch(np_batch, cuda))
+    assert smc.subm_conv_gemm.launches - k1 == 21
+    assert la.local_attn_fwd.launches == k2
     for key, want in ref.items():
         if key in ("query_labels", "on_image_masks"):
             assert torch.equal(got[key].cpu(), want), key
