@@ -55,8 +55,9 @@ blocks trained), through K1's forward and K2's forward and backward:
     phase 5;
 12. one ``tiny_config`` train step on the card against the port's CPU path
     (which tests/test_torch_port_fusion_train.py holds to JAX), as phase 9,
-    the card replaying the CPU run's ReLU masks and sort orders for the
-    gradients, at the fusion tolerances (FUSION_*);
+    the card replaying the CPU run's ReLU masks, sort orders and
+    sampling positions (:func:`sample_grids`) for the gradients, at the
+    fusion tolerances (FUSION_*);
 13. full width, B=2: one train step with the launch counters set to 0 just
     before and read just after; the same step again from the same weights
     and seed, logging whether every trainable gradient leaf came out with
@@ -83,6 +84,39 @@ the polar and pillar I2P) and the V2 decoder; no K2:
     by module (each fenced by ``torch.cuda.synchronize()``) and a
     ``torch.profiler`` frame for K1's device time a frame and the device's
     busy share.
+
+The fifth slice is the DeepInteraction++ train step (``fusion_plusplus``,
+both branches frozen as in ``fusion_base``: Swin-T runs in train mode for
+its DropPath with frozen weights, K1 forward only, 42 launches a step; the
+``FusionTransformerPP`` neck, each interaction layer recomputed in the
+backward, and the V2 decoder train):
+
+16. one ``tiny_pp_config`` train step on the card against the port's CPU
+    path (which tests/test_torch_port_pp_train.py holds to JAX), as phase
+    12, the card replaying the CPU run's ReLU masks, sort orders, dropout
+    masks (:func:`dropout_masks`: the CPU and CUDA generators draw
+    differently from one seed) and deformable-attention sampling positions
+    (:func:`sample_grids`), at the fusion tolerances;
+17. full width and depth, B=2, nothing cut: one train step with the launch
+    counters set to 0 just before and read just after (42 ``subm_conv_gemm``,
+    no other kernel); the same step with K1 swapped for its plain version on
+    the same matching, ReLU masks, sort orders and dropout seed, the frozen
+    trunks (BEV map, FPN levels 0-1, the neck's ``pts_feat_conv``) within
+    PP_TRUNK_TOL of scale; every trainable gradient leaf, logged with the
+    ReLU masks and sort orders replayed and then with all replays but one
+    of the MMPI blocks' boxes (:func:`block_boxes`), the sampling positions
+    and the L1 residual signs (:func:`l1_signs`), logged against the
+    kernels' run again with every replay (the floor), then held within
+    PP_GRAD_TOL of its scale with every replay; ms/step (2 warm-ups, 5
+    timed) and peak memory;
+    host-clock splits by module (``profile_train.timed_step``) and a
+    ``torch.profiler`` step for K1's device time and the busy share.
+
+Record and replay of ReLU masks, sort orders, dropout masks, sampling
+positions, boxes and L1 signs span the whole forward and backward (:func:`step_grads` wraps
+``TrainStep.backward``), so the calls that the backward's recompute of the
+++ interaction layers makes are recorded and replayed in the same order
+too, and the end-of-run asserts (every recorded value used) hold.
 
 A bound is the larger of the bytes (each input read once, each output
 written once) over 3.35 TB/s and the useful operations over the peak rate
@@ -123,7 +157,8 @@ from deepinteraction_tpu_torch.ops import local_attention as la
 from deepinteraction_tpu_torch.ops import sparse_conv as sc
 from deepinteraction_tpu_torch.ops import subm_conv as smc
 from deepinteraction_tpu_torch.ops.voxelize import voxelize
-from deepinteraction_tpu_torch.profile_train import fenced_module_times
+from deepinteraction_tpu_torch.profile_train import MODULES, fenced_module_times, timed_step
+from deepinteraction_tpu_torch.targets import assign
 from deepinteraction_tpu_torch.train.step import TrainStep
 from deepinteraction_tpu_torch.utils.synthetic import init_weights, make_synthetic_batch, to_torch
 
@@ -134,17 +169,20 @@ K2_TOL = 2e-5  # absolute and relative, as torch.testing.assert_close
 K2_BWD_TOL = 1e-4  # max|kernel - plain| / max|plain| for each of dq, dk, dv
 SLICE_TOL = 1e-3  # max|d| / max|plain| for the BEV map and MMRI outputs
 # phase 15's trunks, K1 against plain: 2.7e-5 of scale on an H100 (K1's
-# split-TF32 sums), before the decoder's MMPI blocks amplify it ~30x
+# split-TF32 sums), before the decoder's MMPI blocks amplify it ~30x; phase
+# 17 holds the train step's frozen trunks to it too
 PP_TRUNK_TOL = 1e-4
 TINY_RTOL, TINY_ATOL = 2e-3, 5e-4  # the golden fixtures' tolerance
 # the train step's tolerance in tests/test_torch_port_train.py: losses and
 # grad norm rtol 1e-3, each gradient leaf 1e-3 of its scale (a leaf whose
-# gradient is 0 in exact arithmetic holds noise below 1e-8 of the largest)
+# gradient is 0 in exact arithmetic holds noise below 1e-8 of the largest);
+# phase 17 holds the ++ step's leaves, K1 against plain, to GRAD_TOL
 TRAIN_RTOL, GRAD_TOL, GRAD_NOISE = 1e-3, 1e-3, 1e-8
 # the fusion model has ~30 leaves whose gradient is 0 in exact arithmetic
 # (biases a softmax or a train-mode BN cancels); their fp32 noise reaches
 # 8.7e-9 of the largest leaf at tiny_config (fp32 against fp64 on the CPU)
-# and grows with the sums' length, so phases 12-13 draw the line at 1e-6
+# and grows with the sums' length, so phases 12-13 and 16-17 draw the line
+# at 1e-6
 FUSION_GRAD_NOISE = 1e-6
 # Phase 12 runs the tiny fusion step on two devices. With every ReLU mask and
 # sort order replayed, the card's trunks still leave the CPU's by 1e-5 to
@@ -152,8 +190,16 @@ FUSION_GRAD_NOISE = 1e-6
 # random init amplify that to ~1e-3 at the decoder's outputs (printed by
 # phase 12); gradient leaves follow (1.6e-3 at worst on this card). The
 # step's parity with JAX is the float64 CPU test's; here each leaf is held
-# to 1e-2 of its scale
+# to 1e-2 of its scale, in phase 16's tiny ++ step as well
 FUSION_TINY_GRAD_TOL = 1e-2
+# Phase 17 holds the full ++ step's gradient leaves, K1 against plain, with
+# every discrete choice replayed (ReLU masks, sort orders, the MMPI blocks'
+# boxes, the sampling positions, the L1 residual signs): on an H100 the
+# trunks' 4.7e-5 (pts_feat_conv) reaches 8.6e-4 of scale at the decoder's
+# outputs through the frozen first decoder layer and the four MMPI blocks
+# at random init, and 3.976e-3 at the worst leaf (an MMPI block's
+# self-attention). The same cause as phase 12's, so its bound: 1e-2
+PP_GRAD_TOL = 1e-2
 # BN running statistics after one step: 1e-5 (absolute and relative), as
 # tests/test_torch_port_train.py holds them; the fusion decoder's BNs sit
 # four MMPI blocks deep, where two fp32 runs already differ by 1e-5 (the
@@ -313,6 +359,122 @@ def sort_orders(orders: list, replay: bool, flips: list):
     finally:
         torch.sort = sort
     assert not replay or next(replayed, None) is None, "fewer sort calls than recorded orders"
+
+
+@contextlib.contextmanager
+def dropout_masks(masks: list, replay: bool):
+    """Record every ``Tensor.bernoulli_`` draw (the dropout and DropPath
+    masks) in call order (``replay=False``), or fill the tensors with
+    recorded draws in that order (``replay=True``). One seed gives other
+    masks on the CPU's generator than on the card's, so a comparison across
+    devices replays one run's masks in the other."""
+    bern = torch.Tensor.bernoulli_
+    replayed = iter(masks)
+
+    def record(x, *a, **k):
+        out = bern(x, *a, **k)
+        masks.append(out.detach().clone())
+        return out
+
+    def apply(x, *a, **k):
+        return x.copy_(next(replayed))
+
+    torch.Tensor.bernoulli_ = apply if replay else record
+    try:
+        yield
+    finally:
+        torch.Tensor.bernoulli_ = bern
+    assert not replay or next(replayed, None) is None, "fewer Bernoulli draws than recorded masks"
+
+
+@contextlib.contextmanager
+def sample_grids(grids: list, replay: bool):
+    """Record the sampling grid of every ``F.grid_sample`` call in call
+    order (``replay=False``), or sample at the recorded positions in that
+    order (``replay=True``) while the gradient still flows into the run's
+    own grid. Bilinear sampling is continuous, but its gradient with respect
+    to the position jumps where a sample crosses a pixel edge: the
+    deformable attentions' positions come from the features, so two runs
+    whose features differ by rounding put a few of their millions of samples
+    on either side of an edge, as they put ReLU inputs on either side of 0.
+    The other samplers' grids come from the points and calibration and are
+    the same in both runs."""
+    sample = F.grid_sample
+    replayed = iter(grids)
+
+    def record(x, grid, *a, **k):
+        grids.append(grid.detach())
+        return sample(x, grid, *a, **k)
+
+    def apply(x, grid, *a, **k):
+        rec = next(replayed).to(grid.device, grid.dtype)
+        return sample(x, rec + (grid - grid.detach()), *a, **k)
+
+    F.grid_sample = apply if replay else record
+    try:
+        yield
+    finally:
+        F.grid_sample = sample
+    assert not replay or next(replayed, None) is None, "fewer grid_sample calls than recorded grids"
+
+
+@contextlib.contextmanager
+def l1_signs(signs: list, replay: bool, flips: list):
+    """Record the sign of every box residual (prediction - target) whose
+    absolute value the weighted L1 loss takes, in call order
+    (``replay=False``), or weight each residual by the recorded sign in
+    place of its own (``replay=True``), appending to ``flips`` the number of
+    weighted residuals whose own sign differed. ``|x|``'s gradient jumps at
+    0 as ReLU's does: a matched query whose prediction lies within the two
+    runs' difference of its target pulls the head's weights the other way
+    in one run."""
+    l1 = assign.weighted_l1_loss
+    replayed = iter(signs)
+
+    def record(pred, target, weights, avg_factor):
+        signs.append(torch.sign((pred - target).detach()))
+        return l1(pred, target, weights, avg_factor)
+
+    def apply(pred, target, weights, avg_factor):
+        rec = next(replayed).to(pred.device, pred.dtype)
+        d = pred - target
+        flips.append(int(((torch.sign(d.detach()) != rec) & (weights > 0)).sum()))
+        return (d * rec * weights).sum() / torch.clamp(avg_factor, min=1.0)
+
+    assign.weighted_l1_loss = apply if replay else record
+    try:
+        yield
+    finally:
+        assign.weighted_l1_loss = l1
+    assert not replay or next(replayed, None) is None, "fewer L1 losses than recorded signs"
+
+
+@contextlib.contextmanager
+def block_boxes(head, boxes: list, replay: bool):
+    """Record the boxes that each MMPI block of the decoder ``head`` decodes
+    (the previous layer's predictions, which the block detaches) in call
+    order (``replay=False``), or hand each block the recorded boxes in that
+    order (``replay=True``). A block's on-image masks, its winning view and
+    its ROI samples are all decided from those boxes: two runs whose boxes
+    differ by rounding can put a query on an image in one and off it in the
+    other, and that query then trains in one only. The boxes carry no
+    gradient, so the replaying run's gradient paths stay its own."""
+    replayed = iter(boxes)
+
+    def hook(mod, args):
+        if not replay:
+            boxes.append({k: t.detach().clone() for k, t in args[1].items()})
+            return None
+        return (args[0], next(replayed)) + args[2:]
+
+    blocks = [m for n, m in head.named_children() if n.startswith("mmpi") and not n.endswith("_pred")]
+    handles = [m.register_forward_pre_hook(hook) for m in blocks]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+    assert not replay or next(replayed, None) is None, "fewer MMPI block calls than recorded boxes"
 
 
 def encoder_tables(cfg, batch, dev, capacity: int, with_inverse: bool) -> list:
@@ -519,53 +681,69 @@ def close_grads(got: dict, ref: dict, what: str, noise: float = GRAD_NOISE, tol:
     ``noise`` of the largest, which are 0 in exact arithmetic: noise on both
     sides); returns the worst ratio."""
     line = noise * max(g.abs().max().item() for g in ref.values())
-    worst = 0.0
+    worst, bad = 0.0, []
     for name, r in ref.items():
         scale = r.abs().max().item()
         if scale < line:
-            assert got[name].abs().max().item() < line, f"{what} {name}: not ~0"
+            if got[name].abs().max().item() >= line:
+                bad.append((float("inf"), f"{what} {name}: not ~0"))
             continue
         rel = (got[name] - r).abs().max().item() / scale
-        assert rel <= tol, f"{what} {name}: gradient max rel err {rel:.3e} > {tol} (scale {scale:.3e})"
+        if rel > tol:
+            bad.append((rel, f"{what} {name}: gradient max rel err {rel:.3e} > {tol} (scale {scale:.3e})"))
         worst = max(worst, rel)
+    bad.sort(reverse=True)
+    assert not bad, f"{len(bad)} leaves: " + "; ".join(m for _, m in bad[:5])
     return worst
 
 
-def step_grads(step, batch, seed, targets=None, masks=None, replay=False, orders=None, flips=None):
+def step_grads(step, batch, seed, targets=None, masks=None, replay=False, orders=None, flips=None,
+               drops=None, drop_replay=False, grids=None, boxes=None, signs=None, sign_flips=None):
     """One forward + loss + backward of ``step`` (no update): metrics,
     targets and {name: gradient}; ``masks``: see :func:`relu_masks`;
-    ``orders``, ``flips``: see :func:`sort_orders`."""
+    ``orders``, ``flips``: see :func:`sort_orders`; ``grids``: see
+    :func:`sample_grids`, ``boxes``: see :func:`block_boxes`, ``signs``,
+    ``sign_flips``: see :func:`l1_signs` (all three replayed with
+    ``replay``); ``drops``, ``drop_replay``: see :func:`dropout_masks`."""
     gen = torch.Generator(device=step.device).manual_seed(seed)
     with relu_masks([] if masks is None else masks, replay), contextlib.ExitStack() as stack:
         if orders is not None:
             stack.enter_context(sort_orders(orders, replay, flips))
+        if drops is not None:
+            stack.enter_context(dropout_masks(drops, drop_replay))
+        if grids is not None:
+            stack.enter_context(sample_grids(grids, replay))
+        if boxes is not None:
+            stack.enter_context(block_boxes(step.model.pts_bbox_head, boxes, replay))
+        if signs is not None:
+            stack.enter_context(l1_signs(signs, replay, sign_flips))
         metrics, targets = step.backward(batch, gen, targets)
     grads = {n: p.grad.detach().clone() for n, p in step.model.named_parameters() if p.grad is not None}
     return metrics, targets, grads
 
 
 def check_tiny_train(dev, cfg, name: str, fusion: bool = False) -> list:
-    """Phases 9 and 12: one tiny train step on the card vs the CPU path (the
-    CPU test's seed): the matching, losses and BN statistics of the card's
-    own step; the grad norm and gradients of a card step that replays the
-    CPU run's ReLU masks (:func:`relu_masks`) and sort orders
-    (:func:`sort_orders`, the matching's included), and how far that run's
-    decoder outputs are from the CPU's. ``fusion`` takes the fusion model's
-    tolerances (FUSION_*, IOU_ATOL). Returns the checks that failed, each
-    with its numbers (empty when all held)."""
+    """Phases 9, 12 and 16: one tiny train step on the card vs the CPU path
+    (the CPU test's seed): the matching, losses and BN statistics of the
+    card's own step; the grad norm and gradients of a card step that replays
+    the CPU run's ReLU masks (:func:`relu_masks`), sort orders
+    (:func:`sort_orders`, the matching's included) and sampling positions
+    (:func:`sample_grids`), and how far that run's decoder outputs are from
+    the CPU's. Both card steps replay the CPU run's dropout masks
+    (:func:`dropout_masks`; none where dropout is 0)."""
     noise, stats_tol, iou_atol, grad_tol = ((FUSION_GRAD_NOISE, FUSION_STATS_TOL, IOU_ATOL, FUSION_TINY_GRAD_TOL)
                                             if fusion else (GRAD_NOISE, STATS_TOL, 0.0, GRAD_TOL))
     model = DeepInteraction(cfg.model, cfg.data.padded_img_shape)
     init_weights(model, seed=3)
     card_models = [copy.deepcopy(model) for _ in range(2)]
     np_batch = make_synthetic_batch(cfg, b=2, seed=3, with_gt=True)
-    cpu_masks, card_masks, cpu_orders, flips, preds = [], [], [], [], []
+    cpu_masks, card_masks, cpu_orders, flips, preds, drops, cpu_grids = [], [], [], [], [], [], []
     hooks = [m.pts_bbox_head.register_forward_hook(lambda mod, a, out: preds.append(out))
              for m in (model, card_models[1])]
     ref_m, ref_t, ref_g = step_grads(TrainStep(cfg, model, 10, device="cpu"), to_torch(np_batch, "cpu"), 0,
-                                     masks=cpu_masks, orders=cpu_orders)
+                                     masks=cpu_masks, orders=cpu_orders, drops=drops, grids=cpu_grids)
     got_m, got_t, _ = step_grads(TrainStep(cfg, card_models[0], 10, device=dev), to_torch(np_batch, dev), 0,
-                                 masks=card_masks)
+                                 masks=card_masks, drops=drops, drop_replay=True)
     problems = []
 
     def held(check, *args, **kw):
@@ -591,7 +769,8 @@ def check_tiny_train(dev, cfg, name: str, fusion: bool = False) -> list:
              msg=lambda m, n=b_name: f"{n}: {m}")
     relu_flips = sum((a != b.cpu()).sum().item() for a, b in zip(cpu_masks, card_masks))
     rep_m, _, got_g = step_grads(TrainStep(cfg, card_models[1], 10, device=dev), to_torch(np_batch, dev), 0,
-                                 masks=cpu_masks, replay=True, orders=cpu_orders, flips=flips)
+                                 masks=cpu_masks, replay=True, orders=cpu_orders, flips=flips, drops=drops,
+                                 drop_replay=True, grids=cpu_grids)
     for h in hooks:
         h.remove()
     head_div = max(rel_err(preds[1][k].detach().cpu(), v.detach())[1] for k, v in preds[0].items()
@@ -603,8 +782,9 @@ def check_tiny_train(dev, cfg, name: str, fusion: bool = False) -> list:
         f"matched_ious atol {iou_atol:g}: {got_m['matched_ious'].item():.6g} vs {ref_m['matched_ious'].item():.6g}), "
         f"BN statistics ({stats_tol:g}; max abs diff {stats_err:.3e}); ReLU inputs of opposite sign: "
         f"{relu_flips} of {sum(m.numel() for m in cpu_masks)}; sort calls whose order differed: {sum(flips)} of "
-        f"{len(flips)}; with the CPU's ReLU masks and sort orders the decoder outputs within {head_div:.3e} "
-        f"of scale, grad_norm (rtol {TRAIN_RTOL}) and {len(ref_g)} gradient leaves (worst "
+        f"{len(flips)}; dropout masks replayed: {len(drops)}; sampling grids replayed: {len(cpu_grids)}; with "
+        f"the CPU's ReLU masks, sort orders and sampling positions the decoder outputs within "
+        f"{head_div:.3e} of scale, grad_norm (rtol {TRAIN_RTOL}) and {len(ref_g)} gradient leaves (worst "
         f"{worst if worst is not None else float('nan'):.3e} of scale, tolerance {grad_tol}); checks failed: "
         f"{len(problems)}")
     for p in problems:
@@ -1037,6 +1217,167 @@ def run_pp(dev):
     return launches
 
 
+def run_pp_train(dev):
+    """Phases 16-17: the fusion_plusplus train step at full width, B=2."""
+    # phase 16's failures are raised after phase 17 has run and reported
+    problems = check_tiny_train(dev, tiny_pp_config(), "tiny_pp_config", fusion=True)
+
+    cfg = fusion_plusplus_config()
+    b = cfg.data.samples_per_device
+    assert b == 2, b
+    batch = to_torch(make_synthetic_batch(cfg, b=b, seed=0, with_gt=True), dev)
+    model = DeepInteraction(cfg.model, cfg.data.padded_img_shape).to(dev)
+    init_weights(model, seed=0)
+    start = copy.deepcopy(model.state_dict())
+    step = TrainStep(cfg, model, 1000, device=dev)
+    counted = (smc.subm_conv_gemm, smc.subm_conv_dgrad, smc.subm_conv_wgrad, la.local_attn_fwd, la.local_attn_bwd)
+
+    for c in counted:
+        c.launches = 0
+    metrics, targets, grads = step_grads(step, batch, seed=1)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counted}
+    log(f"fusion_plusplus train step launches, B={b}: {launches}")
+    # both branches frozen: K1 runs forward only, 21 convs a sample; no K2
+    assert launches == {"subm_conv_gemm": 21 * b, "subm_conv_dgrad": 0, "subm_conv_wgrad": 0,
+                        "local_attn_fwd": 0, "local_attn_bwd": 0}, launches
+    for k, v in metrics.items():
+        assert torch.isfinite(v).all(), f"non-finite {k}"
+    trainable = {n for n, q in model.named_parameters() if q.requires_grad}
+    assert set(grads) == trainable, sorted(trainable ^ set(grads))[:10]
+    assert all(torch.isfinite(g).all() for g in grads.values())
+    assert not any(n.startswith(("img_backbone.", "img_neck.", "pts_middle_encoder.", "imgpts_neck.shared_conv_pts."))
+                   for n in grads)
+    log("fusion_plusplus train step: " + " ".join(f"{k}={v.item():.6g}" for k, v in metrics.items())
+        + f"; {len(grads)} trainable of {len(list(model.parameters()))} parameters have finite gradients")
+
+    # K1 swapped for its plain version, from the same weights, statistics,
+    # dropout seed and matching. The kernels' run records every discrete
+    # choice downstream of K1's rounding: ReLU masks, sort orders, the MMPI
+    # blocks' boxes (on-image masks, winning views, ROI samples), the
+    # deformable attentions' sampling positions and the L1 loss's residual
+    # signs. The plain run replays the first two (logged, with how many
+    # on-image decisions differ), then all five (asserted). The frozen
+    # trunks are compared beside the gradients: the sparse encoder's BEV
+    # map, FPN levels 0-1 and the neck's pts_feat_conv
+    trunks = ("pts_middle_encoder", "img_neck", "imgpts_neck.shared_conv_pts")
+    captured, views = {}, []
+    head = model.pts_bbox_head
+    hooks = [model.get_submodule(n).register_forward_hook(lambda m, a, o, n=n: captured.__setitem__(n, o))
+             for n in trunks + ("pts_bbox_head",)]
+    hooks += [m.register_forward_hook(lambda m, a, o: views.append(o[1])) for n, m in head.named_children()
+              if n.startswith("mmpi") and n.endswith("_img")]
+    masks, orders, grids, boxes, signs = [], [], [], [], []
+    model.load_state_dict(start)
+    metrics, _, grads = step_grads(step, batch, seed=1, targets=targets, masks=masks, orders=orders, grids=grids,
+                                   boxes=boxes, signs=signs)
+    kern = {n: [t.detach().clone() for t in tensors(captured[n])] for n in trunks}
+    kern_heads = captured["pts_bbox_head"]
+    kern_views = views[:]
+    log(f"fusion_plusplus train step, kernels' run: recorded {len(masks)} ReLU masks, {len(orders)} sort orders, "
+        f"{len(boxes)} MMPI blocks' boxes, {len(grids)} sampling grids, {len(signs)} L1 residual signs")
+    line = FUSION_GRAD_NOISE * max(g.abs().max().item() for g in grads.values())
+    scales = sorted(g.abs().max().item() for g in grads.values())
+
+    def plain_run(what, plain=True, flips=None, **replays):
+        views.clear()
+        model.load_state_dict(start)
+        sign_flips = []
+        with plain_kernels() if plain else contextlib.nullcontext():
+            out = step_grads(step, batch, seed=1, targets=targets, masks=masks, replay=True, orders=orders,
+                             flips=[] if flips is None else flips, sign_flips=sign_flips, **replays)
+        torch.cuda.synchronize()
+        errs = sorted(((out[2][n] - g).abs().max().item() / g.abs().max().item(), n)
+                      for n, g in grads.items() if g.abs().max().item() >= line)[::-1]
+        moved = sum(int((a != b).sum()) for a, b in zip(kern_views, views))
+        log(f"fusion_plusplus train step, K1 kernels vs {'plain' if plain else 'kernels again'}, {what} replayed: "
+            f"{sum(e > GRAD_TOL for e, _ in errs)} of {len(errs)} leaves above {GRAD_TOL} of scale, "
+            f"{sum(e > PP_GRAD_TOL for e, _ in errs)} above {PP_GRAD_TOL}, worst "
+            + ", ".join(f"{n} {e:.3e}" for e, n in errs[:5]) + f"; on-image winning views that differ from the "
+            f"kernel run's: {moved} of {sum(v.numel() for v in views)}"
+            + (f"; L1 residuals whose own sign differed: {sum(sign_flips)}" if "signs" in replays else ""))
+        return out
+
+    # what each replay holds back: without it, and the kernels' run again
+    # with all of them (the floor: grid_sample's backward adds with atomics)
+    replays = {"the MMPI blocks' boxes": dict(boxes=boxes), "the sampling positions": dict(grids=grids),
+               "the L1 residual signs": dict(signs=signs)}
+    every = {k: v for r in replays.values() for k, v in r.items()}
+    plain_run("ReLU masks and sort orders")
+    for left in replays:
+        plain_run(f"ReLU masks, sort orders and every other replay but {left}",
+                  **{k: v for name, r in replays.items() if name != left for k, v in r.items()})
+    plain_run("ReLU masks, sort orders, " + ", ".join(replays), plain=False, **every)
+    flips = []
+    plain_metrics, _, plain_grads = plain_run("ReLU masks, sort orders, " + ", ".join(replays), flips=flips,
+                                              **every)
+    for h in hooks:
+        h.remove()
+    del masks, orders, grids, boxes, signs, replays, every, views, kern_views
+    heads = {k: rel_err(captured["pts_bbox_head"][k].detach(), v.detach())[1]
+             for k, v in kern_heads.items() if v.is_floating_point()}
+    trunk_err = {f"{n}[{i}]": rel_err(a, p)[1] for n in trunks
+                 for i, (a, p) in enumerate(zip(kern[n], tensors(captured[n])))}
+    log(f"fusion_plusplus train step, K1 kernels vs plain, frozen trunks (max rel err, tolerance {PP_TRUNK_TOL}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in trunk_err.items()) + "; decoder outputs (max rel err): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in heads.items()))
+    problems += [f"trunk {k}: kernels vs plain max rel err {v:.3e} > {PP_TRUNK_TOL}"
+                 for k, v in trunk_err.items() if v > PP_TRUNK_TOL]
+    small = sum(v < line for v in scales)
+    err, rel = rel_err(metrics["loss_total"], plain_metrics["loss_total"])
+    log(f"fusion_plusplus train step, K1 kernels vs plain: {len(grads)} trainable gradient leaves held to "
+        f"{PP_GRAD_TOL} of scale, {small} below {FUSION_GRAD_NOISE:g} of the largest held as ~0 (leaf scales: "
+        f"largest {scales[-1]:.3e}, median {scales[len(scales) // 2]:.3e}); loss_total rel diff {rel:.3e}; sort "
+        f"calls whose own order differed from the kernel run's: {sum(flips)} of {len(flips)}")
+    try:
+        close_grads(grads, plain_grads, "K1 vs plain", FUSION_GRAD_NOISE, PP_GRAD_TOL)
+    except AssertionError as e:
+        problems.append(str(e))
+    del grads, plain_grads, kern, kern_heads, captured
+
+    model.load_state_dict(start)
+    for _ in range(TRAIN_WARMUP):
+        step(batch, torch.Generator(device=dev).manual_seed(2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for i in range(TRAIN_REPS):
+        t0 = time.perf_counter()
+        m = step(batch, torch.Generator(device=dev).manual_seed(3 + i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        assert torch.isfinite(m["loss_total"]), m
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"fusion_plusplus train step, B={b}: ms/step median {statistics.median(times):.3f} "
+        f"(min {min(times):.3f}, max {max(times):.3f}, {TRAIN_REPS} steps after {TRAIN_WARMUP} warm-ups); "
+        f"peak memory allocated {peak / 2**30:.3f} GiB")
+
+    runs = [timed_step(step, batch, 100 + i, MODULES["fusion_plusplus"]) for i in range(3)]
+    split = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    log("fusion_plusplus train step host-clock splits (median of 3 steps, each part fenced by synchronize): "
+        + ", ".join(f"{k.strip()} {v:.3f}" for k, v in split.items()))
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(batch, torch.Generator(device=dev).manual_seed(200))
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3
+    device = k1_ms = 0.0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation:
+            dt = ev.time_range.elapsed_us() / 1e3
+            device += dt
+            k1_ms += dt if "subm_conv" in ev.name else 0.0
+    log(f"fusion_plusplus train step under torch.profiler, one step: window {window:.3f} ms, device time "
+        f"{device:.3f} ms (busy {100 * device / window:.1f} %), K1 subm_conv_gemm device time {k1_ms:.4f} ms")
+    for p in problems:
+        log(f"  FAILED {p}")
+    assert not problems, problems
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1063,14 +1404,16 @@ def main() -> int:
     k1, train_launches = run_lidar(dev, gen)
     k2b, fusion_launches = run_fusion_train(dev, gen)
     pp_launches = run_pp(dev)
+    pp_train_launches = run_pp_train(dev)
 
     src = "deepinteraction_tpu_torch/csrc/subm_conv.cu"
     eval_path, train_path = "fusion_base eval, B=1", "lidar_only train step, B=2"
     fusion_path, pp_path = "fusion_base train step, B=2", "fusion_plusplus eval, B=1"
+    pp_train_path = "fusion_plusplus train step, B=2"
 
     def by_path(name, eval_n=0):
         return {eval_path: eval_n, train_path: train_launches.get(name, 0), fusion_path: fusion_launches[name],
-                pp_path: pp_launches[name]}
+                pp_path: pp_launches[name], pp_train_path: pp_train_launches[name]}
 
     fwd = dict(k1["fwd"], shapes=k1_eval["shapes"] + k1["fwd"]["shapes"], ms_per_frame=k1_eval["ms_per_frame"],
                max_abs_err=max(k1_eval["max_abs_err"], k1["fwd"]["max_abs_err"]))

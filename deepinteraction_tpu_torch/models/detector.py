@@ -5,10 +5,10 @@ detector.py``).
   encoder, SECOND + SECONDFPN, ResNet + FPN, the MMRI v1 encoder and the
   MMPI v1 decoder.
 - DeepInteraction++ (``imgpts_neck.variant == "pp"``, ``fusion_plusplus``),
-  eval: the same LiDAR branch, the image backbone the config names (Swin-T
-  there) + FPN levels 0-1, ``FusionTransformerPP`` on those two levels and
-  on all three SECONDFPN maps, and the V2 MMPI decoder. Its train step is
-  not ported yet (ROADMAP queue 1): ``train=True`` raises.
+  eval and train: the same LiDAR branch, the image backbone the config
+  names (Swin-T there) + FPN levels 0-1, ``FusionTransformerPP`` on those
+  two levels and on all three SECONDFPN maps (each interaction layer
+  recomputed in the backward under train), and the V2 MMPI decoder.
 - LiDAR-only (``cfg.lidar_only``, TransFusion-L), eval and train: one
   voxelization, the sparse encoder, SECOND + SECONDFPN, ``shared_conv`` and
   the query decoder with one heatmap head and no MMPI block.
@@ -18,7 +18,11 @@ detector.py``).
 voxelizes the voxels and the I2P pillars at their train capacities
 ``max_voxels[0]``, normalises with batch statistics (updating the running
 ones; the image backbone only when ``img_backbone.frozen_stages < 0``, as
-in JAX) and draws the dropout masks from ``g``.
+in JAX) and draws the dropout masks from ``g``. Swin-T in ``fusion_plusplus``
+has ``frozen_stages=-1``, so it runs in train mode (its DropPath at 0.2
+drawn from ``g``) although ``freeze_img`` freezes its parameters: with no
+parameter and no input that needs a gradient, autograd records nothing
+through it.
 
 Batch dict (tensors): points [B, N, 5], points_mask [B, N], images
 [B, V, H, W, 3], lidar2img / img2lidar [B, V, 4, 4], lidar_aug /
@@ -99,9 +103,6 @@ class DeepInteraction(nn.Module):
                 generator: torch.Generator | None = None) -> Dict[str, torch.Tensor]:
         fn = self._lidar_only if self.cfg.lidar_only else self._fusion
         if train:
-            if not self.cfg.lidar_only and self.cfg.imgpts_neck.variant == "pp":
-                raise NotImplementedError("the DeepInteraction++ train step is not ported yet "
-                                          "(ROADMAP queue 1); only its eval forward is")
             return fn(batch, True, generator)
         with torch.no_grad():
             return fn(batch, False, None)

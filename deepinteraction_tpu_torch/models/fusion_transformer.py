@@ -19,6 +19,17 @@ on points and calibration only: they are computed once per forward, with no
 gradient, and shared by every layer. None of this is a Pallas kernel in the
 JAX package; it is plain PyTorch.
 
+Under ``train=True`` each interaction layer is recomputed in the backward
+(:func:`recomputed`, ``torch.utils.checkpoint``), as JAX remats them
+(``fusion_transformer.py:391-400``): only the layers' inputs are kept, not
+the deformable-attention and polar-decoder intermediates of the 268 800
+image tokens of a B=2 step. The pillar I2P inside a LiDAR layer recomputes
+per chunk in its turn (``MMRI_I2P``): checkpoint inside checkpoint.
+
+Dropout in train mode: the deformable attentions at their own rate, 0.1
+(mmcv's default, which the reference config leaves as it is, and the JAX
+modules too), the FFNs and the polar decoder at ``cfg.dropout``.
+
 Layouts: images [B, V, h, w, C], BEV [B, Hb, Wb, C], channels last.
 """
 
@@ -31,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs import MMRIEncoderConfig
 from ..ops.deform_attn import MSDeformableAttention
@@ -66,10 +78,10 @@ def sine_pos_2d(h: int, w: int, num_feats: int, device: torch.device,
     return torch.from_numpy(np.concatenate([ye, xe], -1).astype(np.float32)).to(device)
 
 
-def _ref_points(hq: int, wq: int, n: int, levels: int, device) -> torch.Tensor:
+def _ref_points(hq: int, wq: int, n: int, levels: int, device, dtype=torch.float32) -> torch.Tensor:
     """Pixel-centre reference points [n, hq*wq, levels, 2] as (x, y) in [0, 1]."""
-    ys = (torch.arange(hq, dtype=torch.float32, device=device) + 0.5) / hq
-    xs = (torch.arange(wq, dtype=torch.float32, device=device) + 0.5) / wq
+    ys = (torch.arange(hq, dtype=dtype, device=device) + 0.5) / hq
+    xs = (torch.arange(wq, dtype=dtype, device=device) + 0.5) / wq
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     ref = torch.stack([gx.reshape(-1), gy.reshape(-1)], -1)
     return ref[None, :, None, :].expand(n, hq * wq, levels, 2)
@@ -82,12 +94,12 @@ class MMRI_P2I_PP(nn.Module):
     def __init__(self, cfg: MMRIEncoderConfig):
         super().__init__()
         c = cfg.hidden_channel
-        self.local = MSDeformableAttention(c, cfg.num_heads, 1, cfg.deform_num_points, cfg.dropout)
+        self.local = MSDeformableAttention(c, cfg.num_heads, 1, cfg.deform_num_points)
 
     def forward(self, img_map, pts_map, warp_grid, train: bool = False, generator=None):
         b, v, h, w, c = img_map.shape
         warped = bev_warp(pts_map, warp_grid)
-        ref = _ref_points(h, w, b * v, 1, img_map.device)
+        ref = _ref_points(h, w, b * v, 1, img_map.device, img_map.dtype)
         out = self.local(img_map.reshape(b * v, h * w, c), warped.reshape(b * v, h * w, c), ref, [(h, w)],
                          train=train, generator=generator)
         return out.reshape(b, v, h, w, c)
@@ -128,15 +140,15 @@ class PolarI2P(nn.Module):
         r0, r1, rstep = self.radius_range
         r = int((r1 - r0) / rstep)
         ih, iw = self.input_shape
-        dev = pts_map.device
-        pcr = torch.tensor(self.pc_range, device=dev)
+        dev, dt = pts_map.device, pts_map.dtype
+        pcr = torch.tensor(self.pc_range, dtype=dt, device=dev)
         img_pos = sine_pos_2d(h, w, c // 2, dev)  # [h, w, C]
         ray_pos = sine_pos_2d(r, w, c // 2, dev)  # [r, w, C]
-        depths = r0 + rstep * (torch.arange(r, dtype=torch.float32, device=dev) + 0.5)  # bin centres
+        depths = r0 + rstep * (torch.arange(r, dtype=dt, device=dev) + 0.5)  # bin centres
 
         # the BEV cells (x, y) at num_z_bins heights, in the model frame
         def centres(n, lo, hi):
-            return (torch.arange(n, dtype=torch.float32, device=dev) + 0.5) / n * (hi - lo) + lo
+            return (torch.arange(n, dtype=dt, device=dev) + 0.5) / n * (hi - lo) + lo
 
         gy, gx, gz = torch.meshgrid(centres(hb, pcr[1], pcr[4]), centres(wb, pcr[0], pcr[3]),
                                     centres(self.num_z_bins, pcr[2], pcr[5]), indexing="ij")
@@ -144,7 +156,7 @@ class PolarI2P(nn.Module):
         # one ray per feature column, through the pixel row at mid-height
         u = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) * IM_SCALE
         pix = torch.stack([u, torch.full_like(u, (h // 2) * IM_SCALE), torch.ones_like(u),
-                           torch.ones_like(u)], -1)  # [w, 4]
+                           torch.ones_like(u)], -1).to(dt)  # [w, 4]
 
         out = []
         for i in range(b):
@@ -190,8 +202,7 @@ class FusionLayerImg(nn.Module):
     def __init__(self, cfg: MMRIEncoderConfig):
         super().__init__()
         c = cfg.hidden_channel
-        self.self_attn = MSDeformableAttention(c, cfg.num_heads, cfg.num_levels, cfg.deform_num_points,
-                                               cfg.dropout)
+        self.self_attn = MSDeformableAttention(c, cfg.num_heads, cfg.num_levels, cfg.deform_num_points)
         self.norm0 = nn.LayerNorm(c)
         self.p2i = MMRI_P2I_PP(cfg)
         self.norm1 = nn.LayerNorm(c)
@@ -221,8 +232,7 @@ class FusionLayerPts(nn.Module):
     def __init__(self, cfg: MMRIEncoderConfig, pc_range, input_shape):
         super().__init__()
         c = cfg.hidden_channel
-        self.self_attn = MSDeformableAttention(c, cfg.num_heads, cfg.num_levels, cfg.deform_num_points,
-                                               cfg.dropout)
+        self.self_attn = MSDeformableAttention(c, cfg.num_heads, cfg.num_levels, cfg.deform_num_points)
         self.norm0 = nn.LayerNorm(c)
         self.use_polar_i2p = cfg.use_polar_i2p
         if cfg.use_polar_i2p:
@@ -248,6 +258,37 @@ class FusionLayerPts(nn.Module):
         q = self.norm2(qm.reshape(b, hb * wb, c))
         self_feat = self.norm3(self.ffn0(self_feat, train, generator))
         return (self_feat + self.scale * q).reshape(b, hb, wb, c)
+
+
+def recomputed(layer: nn.Module, generator: torch.Generator | None, *args):
+    """``layer(*args, True, generator)`` (train mode) under
+    ``torch.utils.checkpoint`` (non-reentrant): the backward runs the
+    layer's forward again for its intermediates.
+
+    ``checkpoint`` restores the global CPU and CUDA generators for the
+    recompute, not the explicit ``generator`` every dropout here draws from:
+    the recompute would draw new masks and the gradients would belong to
+    another forward. So the generator's state is snapshotted
+    (``get_state``) at the call; the recompute starts from the snapshot,
+    draws the forward's masks again, and then puts back the state it found,
+    so the caller's generator ends the backward where the forward left it."""
+    if generator is None:
+        return checkpoint(layer, *args, True, None, use_reentrant=False)
+    start = generator.get_state()
+    ran = []
+
+    def run(*a):
+        if not ran:  # the forward
+            ran.append(True)
+            return layer(*a, True, generator)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return layer(*a, True, generator)
+        finally:  # also when checkpoint stops the recompute early
+            generator.set_state(now)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 class FusionTransformerPP(nn.Module):
@@ -279,9 +320,9 @@ class FusionTransformerPP(nn.Module):
         pts_shapes = [tuple(f.shape[1:3]) for f in ms_pts]
         img_tokens = torch.cat([f.reshape(b * v, -1, c) for f in ms_img], 1)
         pts_tokens = torch.cat([f.reshape(b, -1, c) for f in ms_pts], 1)
-        dev = pts_feat_conv.device
-        ref_img = _ref_points(*img_shapes[0], b * v, cfg.num_levels, dev)
-        ref_pts = _ref_points(*pts_shapes[0], b, cfg.num_levels, dev)
+        dev, dt = pts_feat_conv.device, pts_feat_conv.dtype
+        ref_img = _ref_points(*img_shapes[0], b * v, cfg.num_levels, dev, dt)
+        ref_pts = _ref_points(*pts_shapes[0], b, cfg.num_levels, dev, dt)
         with torch.no_grad():
             warp_grid = bevwarp_grid(
                 batch["points"], batch["points_mask"], batch["lidar2img"], batch["img2lidar"],
@@ -293,9 +334,12 @@ class FusionTransformerPP(nn.Module):
         new_img = ms_img[0].reshape(b, v, *ms_img[0].shape[1:])
         new_pts = ms_pts[0]
         for i in range(cfg.num_layers):
-            tmp_img = getattr(self, f"img_layer{i}")(new_img, new_pts, img_tokens, ref_img, img_shapes,
-                                                     warp_grid, train, generator)
-            new_pts = getattr(self, f"pts_layer{i}")(new_pts, new_img, pts_tokens, ref_pts, pts_shapes,
-                                                     batch, i2p_geom, train, generator)
-            new_img = tmp_img
+            img_args = (new_img, new_pts, img_tokens, ref_img, img_shapes, warp_grid)
+            pts_args = (new_pts, new_img, pts_tokens, ref_pts, pts_shapes, batch, i2p_geom)
+            img_layer, pts_layer = getattr(self, f"img_layer{i}"), getattr(self, f"pts_layer{i}")
+            if train:
+                new_img, new_pts = (recomputed(img_layer, generator, *img_args),
+                                    recomputed(pts_layer, generator, *pts_args))
+            else:
+                new_img, new_pts = img_layer(*img_args), pts_layer(*pts_args)
         return new_img, (pts_feat_conv, new_pts)

@@ -1,8 +1,8 @@
 """Where the time of a train step goes, on one NVIDIA GPU.
 
-Builds ``--config`` (``lidar_only``, the default, or ``fusion_base``) at
-full width with random seeded weights, takes ``--warmup`` steps on the B=2
-synthetic batch, then reports:
+Builds ``--config`` (``lidar_only``, the default, ``fusion_base`` or
+``fusion_plusplus``) at full width with random seeded weights, takes
+``--warmup`` steps on the B=2 synthetic batch, then reports:
 
 - host-clock splits of one step: each top-level module's forward, the
   matching and targets, the loss, the backward and the AdamW update, each
@@ -13,7 +13,7 @@ synthetic batch, then reports:
   ``local_attn``) and the kernels with the most device time.
 
 Usage: ``python -m deepinteraction_tpu_torch.profile_train [--config
-fusion_base] [--steps 3]``.
+fusion_plusplus] [--steps 3]``.
 Prints one JSON object as its last line. Fails without a CUDA device.
 """
 
@@ -29,18 +29,21 @@ from collections import defaultdict
 
 import torch
 
-from .configs import fusion_base_config, lidar_only_config
+from .configs import fusion_base_config, fusion_plusplus_config, lidar_only_config
 from .models.detector import DeepInteraction
 from .targets.assign import build_targets, detection_loss
 from .train.step import TrainStep, bev_shape
 from .utils.synthetic import init_weights, make_synthetic_batch, to_torch
 
-CONFIGS = {"lidar_only": lidar_only_config, "fusion_base": fusion_base_config}
+CONFIGS = {"lidar_only": lidar_only_config, "fusion_base": fusion_base_config,
+           "fusion_plusplus": fusion_plusplus_config}
 # top-level modules timed by hooks, per config
+FUSION_MODULES = ("img_backbone", "img_neck", "pts_middle_encoder", "pts_backbone", "pts_neck", "imgpts_neck",
+                  "pts_bbox_head")
 MODULES = {
     "lidar_only": ("pts_middle_encoder", "pts_backbone", "pts_neck", "shared_conv", "pts_bbox_head"),
-    "fusion_base": ("img_backbone", "img_neck", "pts_middle_encoder", "pts_backbone", "pts_neck",
-                    "imgpts_neck", "pts_bbox_head"),
+    "fusion_base": FUSION_MODULES,
+    "fusion_plusplus": FUSION_MODULES,
 }
 
 

@@ -13,6 +13,10 @@ step.py::make_train_step``).
   norm and clip cover the trainable parameters only. Frozen BatchNorms
   normalise with batch statistics in train mode, but their running
   statistics are restored after the forward, as the JAX step keeps them.
+  The same prefixes serve DeepInteraction++ (``fusion_plusplus``): there
+  ``FROZEN_IMG`` holds Swin-T and the FPN, and ``FROZEN_PTS`` the neck's
+  ``shared_conv_pts``; what trains is the rest of ``FusionTransformerPP``
+  and the V2 decoder outside the warm-started head parts.
 - The Hungarian matching costs one host round trip per step (``ops/
   hungarian.py``), as in the reference.
 
@@ -82,7 +86,10 @@ class TrainStep:
             if is_frozen(name, self.frozen):
                 p.requires_grad_(False)
         self.params = [p for p in model.parameters() if p.requires_grad]
-        self.frozen_buffers = [b for n, b in model.named_buffers() if is_frozen(n, self.frozen)]
+        # the frozen BN statistics; non-persistent buffers (Swin's relative
+        # position index) are constants of the module and are not touched
+        persistent = model.state_dict(keep_vars=True)
+        self.frozen_buffers = [b for n, b in model.named_buffers() if n in persistent and is_frozen(n, self.frozen)]
         o = cfg.optim
         self.lr = cyclic_cosine(o.lr, *o.lr_target_ratio, o.lr_step_ratio_up, total_steps)
         self.b1 = cyclic_cosine(

@@ -21,7 +21,8 @@ JAX package, on the CPU.
   I2P's mean over z-bins at different image columns all take effect (the
   test asserts the first three).
 - ``params_from_flax`` maps the full ``fusion_plusplus`` variable tree.
-- The ++ train step, not ported yet, raises.
+
+The ++ train step is ``tests/test_torch_port_pp_train.py``'s.
 """
 
 import dataclasses
@@ -161,16 +162,6 @@ def test_drop_path(rate):
     torch.testing.assert_close(a[kept], x[kept] / (1.0 - rate), rtol=0, atol=0)
     assert not a[~kept].any()
     assert int(kept.sum()) == 64 if rate == 0.0 else 16 < int(kept.sum()) < 48
-
-
-def test_pp_train_step_refused():
-    """The ++ train step is not ported (no recompute, nothing holds it to
-    JAX): ``train=True`` raises before any work; eval is the ported path."""
-    cfg = tiny_pp_config()
-    with torch.device("meta"):
-        model = DeepInteraction(cfg.model, cfg.data.padded_img_shape)
-    with pytest.raises(NotImplementedError, match="train step"):
-        model({}, train=True, generator=torch.Generator())
 
 
 def _wide_cameras(np_batch, cfg, focal_frac=0.1, roll=0.15):
