@@ -149,7 +149,39 @@ checkpoint and loaded through ``--checkpoint``:
     4 loader workers, its frames against the in-process run's (1e-3 of
     scale): fps, ms/frame split into loader wait, decode, forward and
     post-processing, the whole run's and the steady peak memory, and the
-    metrics.
+    metrics. The tree and the checkpoint stay for phases 20-22; the
+    directory is removed when the script ends.
+
+The seventh path is training and data preparation from the command line:
+each CLI runs as a user runs it, ``python -m deepinteraction_tpu_torch.
+tools.<cli>`` in a process of its own with its own loader workers, and
+prints its kernel launches (the process's counters) in its last line:
+
+20. ``tools.create_data synthetic --profile realistic --gt-database
+    --export-2d`` on the card: 7 scenes x 3 samples (``TRAIN_TREE``), the
+    writer's last 6 scenes val, so 3 train samples, which CBGS draws into 9
+    ``fusion_base`` steps at B=2, and 18 val frames; its seconds, sample
+    counts, GT-database entries by class (every class drawn in the train
+    split has some) and 2D annotation counts;
+21. ``tools.train`` over that tree at full width and depth, B=2: (a)
+    ``lidar_only`` for one epoch with ``--profile-steps 2`` (its trace
+    exists); (b) ``fusion_base`` for one epoch from ``--load-from`` phase
+    19's checkpoint with ``--eval-infos`` the val pkl; (c) the same again
+    with ``--resume-from`` (b)'s checkpoints and ``optim.total_epochs=2``:
+    it starts at (b)'s last step and writes epoch 1's lines. Each run's
+    ``train_log.jsonl``, ``eval_log.jsonl`` and ``config.json`` read back:
+    every loss finite, the log keys the train step's metric names plus
+    TRAIN_LOG_EXTRA, ``tools/analyze_logs.py cal_train_time`` reads the
+    log; ms/step (the median of the logged ``time`` after the first 2
+    steps), ``data_time``, the first step's seconds and peak memory; the
+    launches: K1's forward, d/dfeat and d/dW at phase 10's counts a step on
+    ``lidar_only``, K1's forward and K2's forward and backward at phase 13's
+    on ``fusion_base``, and phase 19's a batch in its evaluations;
+22. ``tools.benchmark fusion_base`` with ``--synthetic --batch 1``,
+    ``--synthetic --train --batch 2`` and ``--infos`` the val pkl ``--batch
+    1``, each ``--samples 10 --warmup 3``: its JSON line, its launches
+    (K1 21 a sample, K2 6 a batch, and 6 backward a train step), and its
+    numbers beside phases 7 and 13 (logged: the host moves them 20-40 %).
 
 Record and replay of ReLU masks, sort orders, dropout masks, sampling
 positions, boxes and L1 signs span the whole forward and backward (:func:`step_grads` wraps
@@ -194,7 +226,7 @@ from deepinteraction_tpu_torch.configs import (
     tiny_lidar_config,
     tiny_pp_config,
 )
-from deepinteraction_tpu_torch.data import DataLoader, NuScenesDataset
+from deepinteraction_tpu_torch.data import DataLoader, NuScenesDataset, cbgs_indices
 from deepinteraction_tpu_torch.data.nuscenes_converter import create_nuscenes_infos
 from deepinteraction_tpu_torch.inference import get_bboxes
 from deepinteraction_tpu_torch.models import mmri_encoder, sparse_encoder
@@ -283,6 +315,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(REPO, "deepinteraction_tpu_torch", "fixtures")
 SMOKE_DIR = os.path.join(REPO, "work_dirs", "chip_smoke")  # listed in .gitignore; removed after the run
 TRAIN_REPS, TRAIN_WARMUP = 5, 2
+# Phase 20's tree: 7 scenes of 3 samples, the writer's last 6 scenes val, so
+# 3 train samples that CBGS draws 18 times (9 steps at B=2) and 18 val frames
+TRAIN_TREE = (7, 3)
+# the keys a train_log.jsonl line adds to the step's metrics (JAX's
+# tools/train.py:194-214), as tests/test_torch_port_train_cli.py pins them
+TRAIN_LOG_EXTRA = {"epoch", "iter", "step", "time", "data_time"}
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, and FLOP/s of the
 # units each kernel multiplies on: dense TF32 on the tensor cores for K1's
 # forward (so d/dfeat), d/dW and K2, which run split TF32 and are bounded over
@@ -940,7 +978,7 @@ def run_lidar(dev, gen):
     log(f"lidar_only train step, B={b}: ms/step median {statistics.median(times):.3f} "
         f"(min {min(times):.3f}, max {max(times):.3f}, {TRAIN_REPS} steps after {TRAIN_WARMUP} warm-ups); "
         f"peak memory allocated {peak / 2**30:.3f} GiB")
-    return k1, launches
+    return k1, launches, {"ms": statistics.median(times), "peak_gib": peak / 2**30, "metric_keys": set(metrics)}
 
 
 def check_k2_backward(dev, gen):
@@ -1070,7 +1108,7 @@ def run_fusion_train(dev, gen):
         f"(min {min(times):.3f}, max {max(times):.3f}, {TRAIN_REPS} steps after {TRAIN_WARMUP} warm-ups); "
         f"peak memory allocated {peak / 2**30:.3f} GiB")
     assert not problems, problems
-    return k2b, launches
+    return k2b, launches, {"ms": statistics.median(times), "peak_gib": peak / 2**30, "metric_keys": set(metrics)}
 
 
 def run_slice(dev, gen):
@@ -1138,7 +1176,7 @@ def run_slice(dev, gen):
     log(f"fusion_base eval + get_bboxes, B=1: ms/frame median {statistics.median(times):.3f} "
         f"(min {min(times):.3f}, max {max(times):.3f}, {REPS} runs after {WARMUP} warm-ups); "
         f"peak memory allocated {peak / 2**30:.3f} GiB")
-    return k1, k2, launches
+    return k1, k2, launches, {"ms": statistics.median(times), "peak_gib": peak / 2**30}
 
 
 def module_splits(model, fn, names, runs: int = 3) -> dict:
@@ -1523,153 +1561,314 @@ def run_eval_cli(dev, gen):
     p, bsz = cfg.test_num_proposals, cfg.data.samples_per_device
     shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     root = os.path.join(SMOKE_DIR, "nuscenes")
-    try:
-        t0 = time.perf_counter()
-        write_realistic_nuscenes(root, num_scenes=3, samples_per_scene=3, num_val_scenes=3, seed=0, device=dev)
-        _, val = create_nuscenes_infos(root, os.path.join(SMOKE_DIR, "infos"), version="v1.0-trainval")
-        with open(val, "rb") as f:
-            infos = pickle.load(f)["infos"]
-        log(f"realistic nuScenes tree written on the card (3 scenes x 3 samples, 40 objects a scene, 6 cameras "
-            f"of 1600x900, 9 sweeps a sample over 3 spins) and converted in {time.perf_counter() - t0:.1f} s: "
-            f"{len(infos)} val frames")
-        stats = check_jpeg(dev, [c["data_path"] for c in infos[0]["cams"].values()])
+    t0 = time.perf_counter()
+    write_realistic_nuscenes(root, num_scenes=3, samples_per_scene=3, num_val_scenes=3, seed=0, device=dev)
+    _, val = create_nuscenes_infos(root, os.path.join(SMOKE_DIR, "infos"), version="v1.0-trainval")
+    with open(val, "rb") as f:
+        infos = pickle.load(f)["infos"]
+    log(f"realistic nuScenes tree written on the card (3 scenes x 3 samples, 40 objects a scene, 6 cameras "
+        f"of 1600x900, 9 sweeps a sample over 3 spins) and converted in {time.perf_counter() - t0:.1f} s: "
+        f"{len(infos)} val frames")
+    stats = check_jpeg(dev, [c["data_path"] for c in infos[0]["cams"].values()])
 
-        model = DeepInteraction(cfg.model, cfg.data.padded_img_shape, p)
-        init_weights(model, seed=0)
-        ckpt = os.path.join(SMOKE_DIR, "ckpt")
-        save_checkpoint(ckpt, TrainStep(cfg, model, total_steps=1, device=dev))
-        model.eval()
-        argv = ["fusion_base", "--infos", val, "--checkpoint", ckpt, "--num-workers", "0"]
+    model = DeepInteraction(cfg.model, cfg.data.padded_img_shape, p)
+    init_weights(model, seed=0)
+    ckpt = os.path.join(SMOKE_DIR, "ckpt")
+    save_checkpoint(ckpt, TrainStep(cfg, model, total_steps=1, device=dev))
+    model.eval()
+    argv = ["fusion_base", "--infos", val, "--checkpoint", ckpt, "--num-workers", "0"]
 
-        # PyTorch's defaults, as a user's process starts: the CLI sets fp32
-        # (no TF32) and cuDNN autotuning itself
-        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark = True, False
-        counted = (smc.subm_conv_gemm, smc.subm_conv_dgrad, smc.subm_conv_wgrad, la.local_attn_fwd, la.local_attn_bwd)
-        for c in counted:
-            c.launches = 0
-        res = test_cli.main(argv)
-        torch.cuda.synchronize()
-        launches = {c.__name__: c.launches for c in counted}
-        flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark)
-        log(f"eval CLI from PyTorch's defaults: matmul TF32, cuDNN TF32, cuDNN autotuning = {flags}")
-        assert flags == (False, False, True), flags
-        n_batches = len(res["detections"])
-        log(f"eval CLI, fusion_base, {res['timing']['frames']} frames in {n_batches} batches of {bsz}: "
-            f"launches {launches}")
-        assert res["timing"]["frames"] == len(infos) and n_batches == -(-len(infos) // bsz), res["timing"]
-        assert len(infos) % bsz, "the last batch should be padded"
-        # K1: 21 convs a sample; K2: 3 local attentions an MMRI layer, batched
-        k2_per_batch = 3 * cfg.model.imgpts_neck.num_layers
-        assert launches == {"subm_conv_gemm": 21 * bsz * n_batches, "subm_conv_dgrad": 0, "subm_conv_wgrad": 0,
-                            "local_attn_fwd": k2_per_batch * n_batches, "local_attn_bwd": 0}, launches
-        for det in res["detections"]:
-            for name, t in det._asdict().items():
-                assert torch.isfinite(t.float()).all(), f"non-finite {name}"
-            assert det.boxes.shape == (bsz, p, 9)
+    # PyTorch's defaults, as a user's process starts: the CLI sets fp32
+    # (no TF32) and cuDNN autotuning itself
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark = True, False
+    counted = (smc.subm_conv_gemm, smc.subm_conv_dgrad, smc.subm_conv_wgrad, la.local_attn_fwd, la.local_attn_bwd)
+    for c in counted:
+        c.launches = 0
+    res = test_cli.main(argv)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counted}
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark)
+    log(f"eval CLI from PyTorch's defaults: matmul TF32, cuDNN TF32, cuDNN autotuning = {flags}")
+    assert flags == (False, False, True), flags
+    n_batches = len(res["detections"])
+    log(f"eval CLI, fusion_base, {res['timing']['frames']} frames in {n_batches} batches of {bsz}: "
+        f"launches {launches}")
+    assert res["timing"]["frames"] == len(infos) and n_batches == -(-len(infos) // bsz), res["timing"]
+    assert len(infos) % bsz, "the last batch should be padded"
+    # K1: 21 convs a sample; K2: 3 local attentions an MMRI layer, batched
+    k2_per_batch = 3 * cfg.model.imgpts_neck.num_layers
+    assert launches == {"subm_conv_gemm": 21 * bsz * n_batches, "subm_conv_dgrad": 0, "subm_conv_wgrad": 0,
+                        "local_attn_fwd": k2_per_batch * n_batches, "local_attn_bwd": 0}, launches
+    for det in res["detections"]:
+        for name, t in det._asdict().items():
+            assert torch.isfinite(t.float()).all(), f"non-finite {name}"
+        assert det.boxes.shape == (bsz, p, 9)
 
-        # the first batch through the in-memory model: the checkpoint's
-        # detections bit for bit, then K1 and K2 swapped for their plain
-        # versions with the kernel run's sort orders replayed
-        loader = DataLoader(NuScenesDataset(cfg, val, train=False), bsz, num_workers=0)
-        host = next(loader.epoch(0, shuffle=False))
-        host.pop("pad_count"), host.pop("token")
-        batch = to_device(host, cfg.data, dev)
-        # K1 at the realistic frame's tables (surfaces: far more hits a row
-        # than the uniform synthetic cloud of phase 4)
-        k1_real = check_k1(cfg, batch, dev, gen, label="realistic")
-        orders, flips = [], []
-        with sort_orders(orders, False, flips):
-            det = get_bboxes(model(batch), cfg.model.pts_bbox_head, cfg.model.bbox_coder, p)
-        first = res["detections"][0]
-        same = {k: torch.equal(getattr(det, k).cpu(), getattr(first, k)) for k in det._fields}
-        log(f"eval CLI's first batch (checkpoint loaded by --checkpoint) vs the in-memory model: bit-equal {same}")
-        assert all(same.values()), same
-        with plain_kernels(), sort_orders(orders, True, flips):
-            plain = get_bboxes(model(batch), cfg.model.pts_bbox_head, cfg.model.bbox_coder, p)
-        errs = {k: rel_err(getattr(first, k), getattr(plain, k).cpu())[1] for k in ("boxes", "scores")}
-        exact = {k: torch.equal(getattr(first, k), getattr(plain, k).cpu()) for k in ("labels", "keep")}
-        log(f"eval CLI's first batch vs the plain-kernel forward (sort orders replayed; {sum(flips)} of "
-            f"{len(flips)} sorts differed): max rel err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-            + f" (tolerance {SLICE_TOL} of scale); exact {exact}")
-        assert all(v <= SLICE_TOL for v in errs.values()) and all(exact.values()), (errs, exact)
-        del plain, orders
+    # the first batch through the in-memory model: the checkpoint's
+    # detections bit for bit, then K1 and K2 swapped for their plain
+    # versions with the kernel run's sort orders replayed
+    loader = DataLoader(NuScenesDataset(cfg, val, train=False), bsz, num_workers=0)
+    host = next(loader.epoch(0, shuffle=False))
+    host.pop("pad_count"), host.pop("token")
+    batch = to_device(host, cfg.data, dev)
+    # K1 at the realistic frame's tables (surfaces: far more hits a row
+    # than the uniform synthetic cloud of phase 4)
+    k1_real = check_k1(cfg, batch, dev, gen, label="realistic")
+    orders, flips = [], []
+    with sort_orders(orders, False, flips):
+        det = get_bboxes(model(batch), cfg.model.pts_bbox_head, cfg.model.bbox_coder, p)
+    first = res["detections"][0]
+    same = {k: torch.equal(getattr(det, k).cpu(), getattr(first, k)) for k in det._fields}
+    log(f"eval CLI's first batch (checkpoint loaded by --checkpoint) vs the in-memory model: bit-equal {same}")
+    assert all(same.values()), same
+    with plain_kernels(), sort_orders(orders, True, flips):
+        plain = get_bboxes(model(batch), cfg.model.pts_bbox_head, cfg.model.bbox_coder, p)
+    errs = {k: rel_err(getattr(first, k), getattr(plain, k).cpu())[1] for k in ("boxes", "scores")}
+    exact = {k: torch.equal(getattr(first, k), getattr(plain, k).cpu()) for k in ("labels", "keep")}
+    log(f"eval CLI's first batch vs the plain-kernel forward (sort orders replayed; {sum(flips)} of "
+        f"{len(flips)} sorts differed): max rel err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tolerance {SLICE_TOL} of scale); exact {exact}")
+    assert all(v <= SLICE_TOL for v in errs.values()) and all(exact.values()), (errs, exact)
+    del plain, orders
 
-        # NMS: the CLI with each nms_type; the card's keep masks against the
-        # CPU's on the same boxes, the CLI's and a crowded set of the same
-        # size (random weights need not put two boxes of one class together)
-        pre = cfg.model.pts_bbox_head.pre_maxsize
-        gen_nms = torch.Generator().manual_seed(1)
-        crowd = det.boxes.clone()
-        crowd[..., :2] = torch.randint(0, 20, crowd.shape[:2] + (2,), generator=gen_nms).to(dev) * 0.3
-        crowd_labels = torch.randint(8, 10, det.labels.shape, generator=gen_nms).to(dev).to(det.labels.dtype)
-        crowd_scores = torch.rand(det.scores.shape, generator=gen_nms).to(dev)
-        nms = {}
-        for kind in ("circle", "rotate"):
-            r = test_cli.main(argv + ["--cfg-options", f"model.pts_bbox_head.nms_type={kind}"])
-            for what, args in (("the CLI's first batch", (det.boxes, det.scores, det.labels, det.keep)),
-                               ("a crowded set", (crowd, crowd_scores, crowd_labels, det.keep | True))):
-                on_card = nms_keep(*args, kind, pre)
-                on_cpu = nms_keep(*(t.cpu() for t in args), kind, pre)
-                log(f"{kind} NMS on {what} (B={bsz}, {p} boxes): card keep == CPU keep "
-                    f"{torch.equal(on_card.cpu(), on_cpu)}; kept {int(on_cpu.sum())} of {int(args[3].sum())}")
-                assert torch.equal(on_card.cpu(), on_cpu), (kind, what)
-            assert int(on_cpu.sum()) < int(bsz * p), f"{kind} NMS suppressed nothing in the crowded set"
-            cli_keep = nms_keep(det.boxes, det.scores, det.labels, det.keep, kind, pre).cpu()
-            assert torch.equal(r["detections"][0].keep, cli_keep), kind
-            ms = []
-            for _ in range(WARMUP + REPS):
-                t0 = time.perf_counter()
-                nms_keep(det.boxes, det.scores, det.labels, det.keep, kind, pre)
-                torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t0) * 1e3)
-            nms[kind] = statistics.median(ms[WARMUP:])
-            log(f"{kind} NMS through the CLI: its first batch's keep == the card's NMS of the in-memory boxes; "
-                f"{nms[kind]:.3f} ms a batch on the card (host clock, one host sync, median of {REPS}); "
-                f"CLI fps {r['timing']['fps']:.3f}, mAP {r['metrics']['mAP']:.4f}, NDS {r['metrics']['NDS']:.4f}")
+    # NMS: the CLI with each nms_type; the card's keep masks against the
+    # CPU's on the same boxes, the CLI's and a crowded set of the same
+    # size (random weights need not put two boxes of one class together)
+    pre = cfg.model.pts_bbox_head.pre_maxsize
+    gen_nms = torch.Generator().manual_seed(1)
+    crowd = det.boxes.clone()
+    crowd[..., :2] = torch.randint(0, 20, crowd.shape[:2] + (2,), generator=gen_nms).to(dev) * 0.3
+    crowd_labels = torch.randint(8, 10, det.labels.shape, generator=gen_nms).to(dev).to(det.labels.dtype)
+    crowd_scores = torch.rand(det.scores.shape, generator=gen_nms).to(dev)
+    nms = {}
+    for kind in ("circle", "rotate"):
+        r = test_cli.main(argv + ["--cfg-options", f"model.pts_bbox_head.nms_type={kind}"])
+        for what, args in (("the CLI's first batch", (det.boxes, det.scores, det.labels, det.keep)),
+                           ("a crowded set", (crowd, crowd_scores, crowd_labels, det.keep | True))):
+            on_card = nms_keep(*args, kind, pre)
+            on_cpu = nms_keep(*(t.cpu() for t in args), kind, pre)
+            log(f"{kind} NMS on {what} (B={bsz}, {p} boxes): card keep == CPU keep "
+                f"{torch.equal(on_card.cpu(), on_cpu)}; kept {int(on_cpu.sum())} of {int(args[3].sum())}")
+            assert torch.equal(on_card.cpu(), on_cpu), (kind, what)
+        assert int(on_cpu.sum()) < int(bsz * p), f"{kind} NMS suppressed nothing in the crowded set"
+        cli_keep = nms_keep(det.boxes, det.scores, det.labels, det.keep, kind, pre).cpu()
+        assert torch.equal(r["detections"][0].keep, cli_keep), kind
+        ms = []
+        for _ in range(WARMUP + REPS):
+            t0 = time.perf_counter()
+            nms_keep(det.boxes, det.scores, det.labels, det.keep, kind, pre)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        nms[kind] = statistics.median(ms[WARMUP:])
+        log(f"{kind} NMS through the CLI: its first batch's keep == the card's NMS of the in-memory boxes; "
+            f"{nms[kind]:.3f} ms a batch on the card (host clock, one host sync, median of {REPS}); "
+            f"CLI fps {r['timing']['fps']:.3f}, mAP {r['metrics']['mAP']:.4f}, NDS {r['metrics']['NDS']:.4f}")
 
-        tta = test_cli.main(argv + ["--tta"])
-        assert len(tta["frames"]) == len(infos)
-        for f in tta["frames"]:
-            assert np.isfinite(f.boxes).all() and np.isfinite(f.scores).all()
+    tta = test_cli.main(argv + ["--tta"])
+    assert len(tta["frames"]) == len(infos)
+    for f in tta["frames"]:
+        assert np.isfinite(f.boxes).all() and np.isfinite(f.scores).all()
 
-        # the CLI as a user runs it: a process of its own, PyTorch's
-        # defaults, its 4 loader workers; the timings and peaks are its own
-        del model, batch, det, first, crowd
-        gc.collect()
-        torch.cuda.empty_cache()
-        out = os.path.join(SMOKE_DIR, "frames.pkl")
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "deepinteraction_tpu_torch.tools.test", "fusion_base",
-                               "--infos", val, "--checkpoint", ckpt, "--out", out],
-                              capture_output=True, text=True, timeout=600, cwd=REPO)
-        wall = time.perf_counter() - t0
-        assert proc.returncode == 0, proc.stderr[-4000:]
-        summary = json.loads(proc.stdout.strip().splitlines()[-1])
-        with open(out, "rb") as f:
-            frames = pickle.load(f)
-        assert frames["tokens"] == res["tokens"], "the CLI's own process evaluated other frames"
-        worst = 0.0
-        for a, b in zip(frames["frames"], res["frames"]):
-            assert len(a.boxes) == len(b.boxes) and np.array_equal(a.names, b.names)
-            if len(b.boxes):
-                worst = max(worst, np.abs(a.boxes - b.boxes).max() / np.abs(b.boxes).max(),
-                            np.abs(a.scores - b.scores).max() / np.abs(b.scores).max())
-        log(f"eval CLI in a process of its own ({wall:.1f} s wall): frames vs the in-process run: same boxes "
-            f"kept, max rel err {worst:.3e} (tolerance {SLICE_TOL} of scale)")
-        assert worst <= SLICE_TOL, worst
-        t, tt = summary["timing"], tta["timing"]
-        log(f"eval CLI summary (fusion_base, B={bsz}, {t['frames']} frames, its own process): {t['fps']:.3f} fps "
-            f"(set-up {t['setup_s']:.3f} s, first batch {t['first_batch_s']:.3f} s: "
-            + ", ".join(f"{k} {v:.3f}" for k, v in t["first_batch_ms"].items()) + " ms), "
-            f"ms/frame after the first batch: " + ", ".join(f"{k} {v:.3f}" for k, v in t["ms_per_frame"].items())
-            + f" (total {t['ms_per_frame_total']:.3f}); peak memory {t['peak_memory_gib']:.3f} GiB over the run, "
-            f"{t['steady_peak_memory_gib']:.3f} GiB after the first batch; in this process: plain "
-            f"{res['timing']['fps']:.3f} fps, TTA {tt['fps']:.3f} fps, {tt['ms_per_frame_total']:.3f} ms/frame "
-            f"(no workers); NMS circle {nms['circle']:.3f} ms, rotate {nms['rotate']:.3f} ms a batch; metrics "
-            + json.dumps(res["metrics"], sort_keys=True))
-        return launches, stats, k1_real
-    finally:
-        shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    # the CLI as a user runs it: a process of its own, PyTorch's
+    # defaults, its 4 loader workers; the timings and peaks are its own
+    del model, batch, det, first, crowd
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = os.path.join(SMOKE_DIR, "frames.pkl")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "deepinteraction_tpu_torch.tools.test", "fusion_base",
+                           "--infos", val, "--checkpoint", ckpt, "--out", out],
+                          capture_output=True, text=True, timeout=600, cwd=REPO)
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    with open(out, "rb") as f:
+        frames = pickle.load(f)
+    assert frames["tokens"] == res["tokens"], "the CLI's own process evaluated other frames"
+    worst = 0.0
+    for a, b in zip(frames["frames"], res["frames"]):
+        assert len(a.boxes) == len(b.boxes) and np.array_equal(a.names, b.names)
+        if len(b.boxes):
+            worst = max(worst, np.abs(a.boxes - b.boxes).max() / np.abs(b.boxes).max(),
+                        np.abs(a.scores - b.scores).max() / np.abs(b.scores).max())
+    log(f"eval CLI in a process of its own ({wall:.1f} s wall): frames vs the in-process run: same boxes "
+        f"kept, max rel err {worst:.3e} (tolerance {SLICE_TOL} of scale)")
+    assert worst <= SLICE_TOL, worst
+    t, tt = summary["timing"], tta["timing"]
+    log(f"eval CLI summary (fusion_base, B={bsz}, {t['frames']} frames, its own process): {t['fps']:.3f} fps "
+        f"(set-up {t['setup_s']:.3f} s, first batch {t['first_batch_s']:.3f} s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in t["first_batch_ms"].items()) + " ms), "
+        f"ms/frame after the first batch: " + ", ".join(f"{k} {v:.3f}" for k, v in t["ms_per_frame"].items())
+        + f" (total {t['ms_per_frame_total']:.3f}); peak memory {t['peak_memory_gib']:.3f} GiB over the run, "
+        f"{t['steady_peak_memory_gib']:.3f} GiB after the first batch; in this process: plain "
+        f"{res['timing']['fps']:.3f} fps, TTA {tt['fps']:.3f} fps, {tt['ms_per_frame_total']:.3f} ms/frame "
+        f"(no workers); NMS circle {nms['circle']:.3f} ms, rotate {nms['rotate']:.3f} ms a batch; metrics "
+        + json.dumps(res["metrics"], sort_keys=True))
+    return launches, stats, k1_real, ckpt
+
+
+def run_cli(name: str, *args: str, timeout: int = 900) -> tuple:
+    """``python -m deepinteraction_tpu_torch.tools.<name> args`` in a
+    process of its own, as a user runs it; returns (its last line as JSON,
+    or None if that line is not JSON, the wall seconds). A non-zero exit
+    raises."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"deepinteraction_tpu_torch.tools.{name}", *args],
+                          capture_output=True, text=True, timeout=timeout, cwd=REPO)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"tools.{name} {' '.join(args)} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                           f"{proc.stderr[-5000:]}")
+    last = proc.stdout.strip().splitlines()[-1]
+    return (json.loads(last) if last.startswith("{") else None), wall
+
+
+def read_train_run(work: str, summary: dict, metric_keys: set, label: str) -> dict:
+    """Phase 21: a train CLI run's logs, read back and checked; its ms/step
+    (the median of the logged steps' ``time`` after the first 2), loader
+    wait and image stage (``data_time``), first step and peak memory."""
+    with open(os.path.join(work, "train_log.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    with open(os.path.join(work, "config.json")) as f:
+        config = json.load(f)
+    rows = [r for r in rows if r["step"] > summary["first_step"]]
+    assert [r["step"] for r in rows] == list(range(summary["first_step"] + 1, summary["last_step"] + 1)), label
+    for r in rows:
+        assert set(r) == metric_keys | TRAIN_LOG_EXTRA, (label, sorted(set(r) ^ (metric_keys | TRAIN_LOG_EXTRA)))
+        assert all(np.isfinite(v) for v in r.values()), (label, r)
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "tools", "analyze_logs.py"), "cal_train_time",
+                           os.path.join(work, "train_log.jsonl")], capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "iter time: mean" in proc.stdout, proc.stderr[-2000:]
+    steady = rows[2:] or rows
+    t = {"ms_per_step": statistics.median(r["time"] for r in steady) * 1e3,
+         "data_ms": statistics.median(r["data_time"] for r in steady) * 1e3,
+         "first_step_s": rows[0]["time"], "first_data_s": rows[0]["data_time"], "steps": len(rows),
+         "peak_gib": summary["peak_memory_gib"], "steady_peak_gib": summary["steady_peak_memory_gib"],
+         "wall_s": summary["seconds"]}
+    log(f"train CLI {label}: config.json {config}; {len(rows)} steps {rows[0]['step']}-{rows[-1]['step']}, every "
+        f"loss finite, log keys those of TrainStep's metrics + {sorted(TRAIN_LOG_EXTRA)}, analyze_logs "
+        f"cal_train_time: {proc.stdout.strip().splitlines()[0]}; ms/step {t['ms_per_step']:.3f} (median after the "
+        f"first 2 steps; min {min(r['time'] for r in steady) * 1e3:.3f}, max "
+        f"{max(r['time'] for r in steady) * 1e3:.3f}), data_time {t['data_ms']:.3f} ms; first step "
+        f"{t['first_step_s']:.3f} s (its data_time {t['first_data_s']:.3f} s); peak memory {t['peak_gib']:.3f} GiB, "
+        f"{t['steady_peak_gib']:.3f} after the first step; "
+        f"the run {t['wall_s']:.1f} s in its process; losses of the last step "
+        + " ".join(f"{k}={rows[-1][k]:.5g}" for k in ("loss_total", "loss_heatmap", "matched_ious", "grad_norm")))
+    return t
+
+
+def run_train_cli(dev, ckpt: str, measured: dict) -> dict:
+    """Phases 20-22: the data-preparation, train and benchmark CLIs, each
+    as ``python -m deepinteraction_tpu_torch.tools.<cli>`` in a process of
+    its own. Returns each path's kernel launches (as the CLIs count them)."""
+    root = os.path.join(SMOKE_DIR, "train_tree")
+    _, wall = run_cli("create_data", "synthetic", "--root", root, "--profile", "realistic",
+                           "--num-scenes", str(TRAIN_TREE[0]), "--num-samples", str(TRAIN_TREE[1]),
+                           "--gt-database", "--export-2d")
+    train_pkl, val_pkl = (os.path.join(root, f"nuscenes_infos_{s}.pkl") for s in ("train", "val"))
+    infos = {}
+    for split, path in (("train", train_pkl), ("val", val_pkl)):
+        with open(path, "rb") as f:
+            infos[split] = pickle.load(f)["infos"]
+    with open(os.path.join(root, "gt_database_infos.pkl"), "rb") as f:
+        db = pickle.load(f)
+    n_2d = {}
+    for split, path in (("train", train_pkl), ("val", val_pkl)):
+        with open(path[: -len(".pkl")] + "_mono3d.coco.json") as f:
+            coco = json.load(f)
+        assert len(coco["images"]) == 6 * len(infos[split]), split
+        n_2d[split] = len(coco["annotations"])
+    drawn = sorted({str(n) for i in infos["train"] for n in i["gt_names"]})
+    cfg = fusion_base_config()
+    steps = len(cbgs_indices(infos["train"], cfg.data.class_names, 0)) // cfg.data.samples_per_device
+    log(f"create_data synthetic --profile realistic ({TRAIN_TREE[0]} scenes x {TRAIN_TREE[1]} samples, 6 of the "
+        f"scenes val) in its own process: {wall:.1f} s; {len(infos['train'])} train and {len(infos['val'])} val "
+        f"samples; GT database entries by class "
+        + json.dumps({k: len(v) for k, v in sorted(db.items())})
+        + f"; 2D annotations {n_2d}; CBGS gives {steps} train steps an epoch at B={cfg.data.samples_per_device}")
+    assert len(infos["val"]) == 6 * TRAIN_TREE[1] and steps >= 8, (len(infos["val"]), steps)
+    missing = [n for n in drawn if not db.get(n)]
+    assert not missing, f"classes drawn in the train split without GT-database entries: {missing}"
+    assert all(n_2d.values()), n_2d
+
+    every_step = ["--cfg-options", "optim.log_interval_steps=1"]
+    work = os.path.join(SMOKE_DIR, "train_lidar")
+    lidar, _ = run_cli("train", "lidar_only", "--infos", train_pkl, "--work-dir", work, "--profile-steps", "2",
+                          *every_step, "optim.total_epochs=1")
+    trace = os.path.join(work, "trace", "trace.json")
+    assert os.path.getsize(trace) > 0, trace
+    lidar_t = read_train_run(work, lidar, measured["lidar_keys"], "lidar_only, 1 epoch")
+    log(f"train CLI lidar_only: --profile-steps 2 wrote {trace} ({os.path.getsize(trace)} bytes); "
+        f"kernel launches {lidar['launches']}")
+    per_step = {"subm_conv_gemm": 42, "subm_conv_dgrad": 40, "subm_conv_wgrad": 42, "local_attn_fwd": 0,
+                "local_attn_bwd": 0}
+    assert lidar["launches"] == {k: v * lidar["steps"] for k, v in per_step.items()}, lidar
+    assert lidar["steps"] == steps, lidar
+
+    work = os.path.join(SMOKE_DIR, "train_fusion")
+    fusion, _ = run_cli("train", "fusion_base", "--infos", train_pkl, "--work-dir", work, "--load-from", ckpt,
+                           "--eval-infos", val_pkl, *every_step, "optim.total_epochs=1")
+    fusion_t = read_train_run(work, fusion, measured["fusion_keys"], "fusion_base, 1 epoch from --load-from")
+    resumed, _ = run_cli("train", "fusion_base", "--infos", train_pkl, "--work-dir", work, "--resume-from",
+                            os.path.join(work, "ckpts"), "--eval-infos", val_pkl, *every_step,
+                            "optim.total_epochs=2")
+    assert (resumed["first_step"], resumed["last_step"]) == (fusion["last_step"], 2 * fusion["last_step"]), resumed
+    resumed_t = read_train_run(work, resumed, measured["fusion_keys"], "fusion_base, epoch 1 from --resume-from")
+    with open(os.path.join(work, "train_log.jsonl")) as f:
+        epochs = [json.loads(line)["epoch"] for line in f]
+    with open(os.path.join(work, "eval_log.jsonl")) as f:
+        evals = [json.loads(line) for line in f]
+    assert epochs == [0] * steps + [1] * steps, epochs
+    assert [e["epoch"] for e in evals] == [0, 1] and all(np.isfinite(e["NDS"]) for e in evals), evals
+    fusion_step = {"subm_conv_gemm": 42, "subm_conv_dgrad": 0, "subm_conv_wgrad": 0, "local_attn_fwd": 6,
+                   "local_attn_bwd": 6}
+    batches = -(-len(infos["val"]) // cfg.data.samples_per_device)
+    eval_batch = {"subm_conv_gemm": 42, "subm_conv_dgrad": 0, "subm_conv_wgrad": 0, "local_attn_fwd": 6,
+                  "local_attn_bwd": 0}
+    for run in (fusion, resumed):
+        assert run["launches"] == {k: v * steps for k, v in fusion_step.items()}, run
+        assert run["eval_launches"] == {k: v * batches for k, v in eval_batch.items()}, run
+    log(f"train CLI fusion_base: --resume-from continued at step {resumed['first_step']} and wrote epoch 1's "
+        f"{steps} lines; eval_log {[{k: round(e[k], 6) for k in ('epoch', 'mAP', 'NDS')} for e in evals]}; "
+        f"kernel launches a run: train steps {fusion['launches']}, its evaluation of {len(infos['val'])} val frames "
+        f"{fusion['eval_launches']}")
+
+    val_args = ("--infos", val_pkl, "--batch", "1")
+    bench = {}
+    for label, args in (("eval, synthetic, B=1", ("--synthetic", "--batch", "1")),
+                        ("train, synthetic, B=2", ("--synthetic", "--train", "--batch", "2")),
+                        ("eval, --infos val, B=1", val_args)):
+        rec, wall = run_cli("benchmark", "fusion_base", *args, "--samples", str(REPS), "--warmup", str(WARMUP))
+        assert rec["device"] == torch.cuda.get_device_name(dev) and rec["samples"] == REPS, rec
+        assert all(np.isfinite(rec[k]) for k in ("ms_per_iter_mean", "ms_per_iter_median", "peak_memory_gib"))
+        bench[label] = rec
+        log(f"benchmark CLI fusion_base {label} ({wall:.1f} s in its own process): " + json.dumps(rec))
+        b = int(args[args.index("--batch") + 1])
+        want = {"subm_conv_gemm": 21 * b, "subm_conv_dgrad": 0, "subm_conv_wgrad": 0, "local_attn_fwd": 6,
+                "local_attn_bwd": 6 if "--train" in args else 0}
+        assert rec["launches"] == {k: v * REPS for k, v in want.items()}, (label, rec["launches"])
+    log(f"benchmark CLI beside this process (logged, not asserted; the host moves these 20-40 %): eval B=1 "
+        f"{bench['eval, synthetic, B=1']['ms_per_iter_median']:.3f} ms/frame synthetic, "
+        f"{bench['eval, --infos val, B=1']['ms_per_iter_median']:.3f} on the realistic val frames, against "
+        f"{measured['eval_ms']:.3f} in phase 7; train B=2 {bench['train, synthetic, B=2']['ms_per_iter_median']:.3f} "
+        f"ms/step against {measured['fusion_ms']:.3f} in phase 13 and {fusion_t['ms_per_step']:.3f} and "
+        f"{resumed_t['ms_per_step']:.3f} in the train CLI over the realistic tree; peak memory "
+        + ", ".join(f"{k} {v['peak_memory_gib']:.3f}" for k, v in bench.items())
+        + f" GiB (phase 7 {measured['eval_peak_gib']:.3f}, phase 13 {measured['fusion_peak_gib']:.3f})")
+    log(f"train CLI summary (H100 runs above): lidar_only {lidar_t['ms_per_step']:.3f} ms/step, data "
+        f"{lidar_t['data_ms']:.3f} ms; fusion_base {fusion_t['ms_per_step']:.3f} and {resumed_t['ms_per_step']:.3f} "
+        f"ms/step, data {fusion_t['data_ms']:.3f} and {resumed_t['data_ms']:.3f} ms; first steps "
+        f"{lidar_t['first_step_s']:.3f}, {fusion_t['first_step_s']:.3f}, {resumed_t['first_step_s']:.3f} s; peaks "
+        f"{lidar_t['peak_gib']:.3f}, {fusion_t['peak_gib']:.3f}, {resumed_t['peak_gib']:.3f} GiB, after the first "
+        f"step {lidar_t['steady_peak_gib']:.3f}, {fusion_t['steady_peak_gib']:.3f}, "
+        f"{resumed_t['steady_peak_gib']:.3f} GiB")
+    fusion_label = f"fusion_base train CLI (tools.train), 2 runs of {steps} steps, B=2"
+    return {f"lidar_only train CLI (tools.train), {steps} steps, B=2": lidar["launches"],
+            fusion_label: {k: fusion["launches"][k] + resumed["launches"][k] for k in fusion_step},
+            fusion_label + ", their --eval-infos evaluations": {
+                k: fusion["eval_launches"][k] + resumed["eval_launches"][k] for k in fusion_step},
+            **{f"fusion_base benchmark CLI (tools.benchmark), {k}, {REPS} timed": v["launches"]
+               for k, v in bench.items()}}
 
 
 def main() -> int:
@@ -1695,12 +1894,19 @@ def main() -> int:
     cuda_lib.fp32_numerics()
 
     gen = torch.Generator().manual_seed(0)
-    k1_eval, k2, eval_launches = run_slice(dev, gen)
-    k1, train_launches = run_lidar(dev, gen)
-    k2b, fusion_launches = run_fusion_train(dev, gen)
+    k1_eval, k2, eval_launches, slice_t = run_slice(dev, gen)
+    k1, train_launches, lidar_t = run_lidar(dev, gen)
+    k2b, fusion_launches, fusion_t = run_fusion_train(dev, gen)
     pp_launches = run_pp(dev)
     pp_train_launches = run_pp_train(dev)
-    cli_launches, _, k1_real = run_eval_cli(dev, gen)
+    try:
+        cli_launches, _, k1_real, ckpt = run_eval_cli(dev, gen)
+        measured = {"eval_ms": slice_t["ms"], "eval_peak_gib": slice_t["peak_gib"], "fusion_ms": fusion_t["ms"],
+                    "fusion_peak_gib": fusion_t["peak_gib"], "lidar_keys": lidar_t["metric_keys"],
+                    "fusion_keys": fusion_t["metric_keys"]}
+        cli_paths = run_train_cli(dev, ckpt, measured)
+    finally:
+        shutil.rmtree(SMOKE_DIR, ignore_errors=True)
 
     src = "deepinteraction_tpu_torch/csrc/subm_conv.cu"
     eval_path, train_path = "fusion_base eval, B=1", "lidar_only train step, B=2"
@@ -1710,7 +1916,8 @@ def main() -> int:
 
     def by_path(name, eval_n=0):
         return {eval_path: eval_n, train_path: train_launches.get(name, 0), fusion_path: fusion_launches[name],
-                pp_path: pp_launches[name], pp_train_path: pp_train_launches[name], cli_path: cli_launches[name]}
+                pp_path: pp_launches[name], pp_train_path: pp_train_launches[name], cli_path: cli_launches[name],
+                **{path: counts[name] for path, counts in cli_paths.items()}}
 
     fwd = dict(k1["fwd"], shapes=k1_eval["shapes"] + k1["fwd"]["shapes"] + k1_real["shapes"],
                ms_per_frame=k1_eval["ms_per_frame"], ms_per_realistic_frame=k1_real["ms_per_frame"],

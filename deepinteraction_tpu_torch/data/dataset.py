@@ -10,12 +10,14 @@ max pool size — replicated here.
 
 from __future__ import annotations
 
+import os
 import pickle
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from ..configs import Config
+from .gt_database import ObjectSampler
 from .pipeline import build_sample
 
 
@@ -59,7 +61,8 @@ def cbgs_indices(
 
 class NuScenesDataset:
     """Indexable dataset: infos + online pipeline -> static-shape samples.
-    (GT paste, the JAX dataset's ``gt_database``, is not ported yet.)"""
+    With ``gt_database`` (an index pkl of ``gt_database.create_gt_database``)
+    a train sample gets GT paste by ``sample_groups`` (class -> count)."""
 
     def __init__(
         self,
@@ -68,6 +71,8 @@ class NuScenesDataset:
         train: bool,
         use_cbgs: Optional[bool] = None,
         seed: int = 0,
+        gt_database: Optional[str] = None,
+        sample_groups: Optional[Dict[str, int]] = None,
     ):
         self.cfg = cfg
         self.train = train
@@ -79,6 +84,9 @@ class NuScenesDataset:
             self.indices = cbgs_indices(self.infos, cfg.data.class_names, seed)
         else:
             self.indices = np.arange(len(self.infos))
+        self.sampler = None
+        if train and gt_database:
+            self.sampler = ObjectSampler(gt_database, os.path.dirname(gt_database), sample_groups or {})
 
     def __len__(self) -> int:
         return len(self.indices)
@@ -86,7 +94,7 @@ class NuScenesDataset:
     def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
         info = self.infos[int(self.indices[i])]
         rng = np.random.default_rng((self.seed, self.epoch, i)) if self.train else None
-        return build_sample(info, self.cfg, self.train, rng, epoch=self.epoch)
+        return build_sample(info, self.cfg, self.train, rng, sampler=self.sampler, epoch=self.epoch)
 
     def epoch_indices(self, epoch: int, shuffle: bool = True) -> np.ndarray:
         idx = np.arange(len(self))

@@ -12,9 +12,9 @@ on the card). Distribution across processes (the JAX loader's
 The parent has CUDA initialised, so the workers are spawned, not forked.
 A spawned process imports the program's main module before it runs
 anything, so a program that starts a pool keeps its main module light:
-the eval CLI (``tools/test.py``) imports torch and the model inside
-``main()``, and its workers import numpy and this package's host modules
-only. Spawned workers that imported torch and the model held the
+the CLIs (``tools/test.py``, ``train.py``, ``benchmark.py``) import torch
+and the model inside ``main()``, and their workers import numpy and this
+package's host modules only. Spawned workers that imported torch and the model held the
 ``fusion_base`` CLI's first batch for 23.8 s on an H100 host (72 ms with
 no workers).
 """

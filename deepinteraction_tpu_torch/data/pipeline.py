@@ -14,8 +14,8 @@ it, with the train flip in ``img_flip``; ``ops/images.py::process_images``
 decodes, resizes, normalises and pads the images on the batch's device and
 folds the resize and the flip into ``lidar2img`` (``DataLoader.to_device``
 runs it). Sweeps load through the numpy path (the JAX package's native C++
-reader is not ported). GT paste (``sampler``) is not ported yet: a sampler
-raises.
+reader is not ported). GT paste (``sampler``, ``data/gt_database.py``) runs
+before the global augmentation while the Fading hook keeps it active.
 
 Deliberate deviations from the reference, kept from the JAX package:
 
@@ -262,7 +262,10 @@ def build_sample(
     aug = np.eye(4, dtype=np.float32)
     flip_h = False
     if train and sampler is not None:
-        raise NotImplementedError("GT paste (data/gt_database.py) is not ported yet")
+        from .gt_database import fading_active  # gt_database imports this module
+
+        if fading_active(epoch, d.fade_epoch):
+            points, boxes, labels = sampler(points, boxes, labels, class_names, rng)
     if train:
         points, boxes, a = global_rot_scale_trans(
             points, boxes, rng, d.rot_range, d.scale_ratio_range, d.translation_std

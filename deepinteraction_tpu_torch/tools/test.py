@@ -17,8 +17,9 @@ raises. On the card it runs in fp32, TF32 off, with cuDNN autotuning
 on the card (nvJPEG). ``--checkpoint`` takes a port checkpoint directory
 (``train/checkpoint.py``; ``tools/convert_torch_ckpt.py`` makes one from a
 reference ``.pth``); without it the weights are random from ``cfg.seed``.
-Single process: the JAX CLI's multi-host sharding and result gathering are
-not ported yet.
+The loop is :func:`evaluate`, which the train CLI's ``--eval-infos`` runs
+too. Single process: the JAX CLI's multi-host sharding and result
+gathering are not ported yet.
 """
 
 from __future__ import annotations
@@ -77,52 +78,37 @@ def _frame_from_fused(boxes, scores, labels, class_names) -> DetectionFrame:
     return DetectionFrame(boxes=boxes[:, :7], velocity=vel, names=names, scores=scores, attributes=attrs)
 
 
-def main(argv: Optional[List[str]] = None) -> Dict:
-    """Run the evaluation; returns the metrics, the frames and their tokens,
-    the raw detections of every batch (on the CPU; not with ``--tta``), and
-    the timings: fps; the seconds of set-up (config, dataset, model,
-    checkpoint), of the first batch and of the metrics; ms/frame after the
-    first batch, split into loader wait, decode (the image stage: JPEG
-    decode, resize, normalise, pad, and the batch's copy to the device),
-    forward and post-processing (``get_bboxes`` with any NMS, the copy to
-    the host, the frames); and on a card the peak device memory of the
-    whole run and of the batches after the first."""
+def evaluate(model, cfg, num_proposals: int, infos: str, num_workers: int, device, tta: bool = False,
+             out: Optional[str] = None) -> Dict:
+    """Evaluate ``model`` (on ``device``) over the val split of the info pkl
+    ``infos`` at the proposal count ``num_proposals``, loading through
+    ``num_workers`` spawned workers: decode boxes (``get_bboxes``, or
+    double-flip TTA with ``tta``), write the raw frames to ``out`` if
+    given, and score them with the nuScenes metrics.
+
+    Returns the metrics, the frames and their tokens, the raw detections of
+    every batch (on the CPU; not with ``tta``), and the timings: fps; the
+    seconds of set-up (the dataset and loader), of the first batch and of
+    the metrics; ms/frame after the first batch, split into loader wait,
+    decode (the image stage: JPEG decode, resize, normalise, pad, and the
+    batch's copy to the device), forward and post-processing
+    (``get_bboxes`` with any NMS, the copy to the host, the frames); and on
+    a card the peak device memory since the caller last reset it (through
+    the first batch) and of the batches after the first."""
     import torch
 
     from ..eval.tta import tta_inference
     from ..inference import Detections, get_bboxes
-    from ..models.detector import DeepInteraction
-    from ..ops import cuda_lib
     from ..ops.images import to_device
-    from ..train.checkpoint import load_weights
-    from ..utils.synthetic import init_weights
 
     t_start = time.perf_counter()
-    args = parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass --device cpu to evaluate on the CPU")
-        cuda_lib.fp32_numerics()
-        torch.cuda.reset_peak_memory_stats(device)
-    cfg = CONFIGS[args.config]()
-    if args.cfg_options:
-        cfg = apply_overrides(cfg, dict(kv.split("=", 1) for kv in args.cfg_options))
-
-    dataset = NuScenesDataset(cfg, args.infos, train=False)
+    device = torch.device(device)
+    dataset = NuScenesDataset(cfg, infos, train=False)
     if not len(dataset):
-        raise ValueError(f"{args.infos} holds no samples")
+        raise ValueError(f"{infos} holds no samples")
     batch_size = cfg.data.samples_per_device
-    loader = DataLoader(dataset, batch_size, num_workers=args.num_workers)
-
-    p = cfg.test_num_proposals
-    model = DeepInteraction(cfg.model, cfg.data.padded_img_shape, num_proposals=p).to(device).eval()
-    if args.checkpoint:
-        load_weights(args.checkpoint, model)
-        print(f"loaded params from {args.checkpoint}")
-    else:
-        init_weights(model, seed=cfg.seed)
-    dcfg = cfg.model.pts_bbox_head
+    loader = DataLoader(dataset, batch_size, num_workers=num_workers)
+    dcfg, p = cfg.model.pts_bbox_head, num_proposals
 
     def forward(batch):
         return get_bboxes(model(batch), dcfg, cfg.model.bbox_coder, p)
@@ -150,7 +136,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             sync()
             tc = time.perf_counter()
             b = len(toks) - pad
-            if args.tta:
+            if tta:
                 fused = tta_inference(forward, arrays)
                 td = time.perf_counter()  # the forwards and their fusion are not separable here
                 for i in range(b):
@@ -183,8 +169,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     elapsed = time.perf_counter() - t0
     t_metrics = time.perf_counter()
 
-    if args.out:
-        with open(args.out, "wb") as f:
+    if out:
+        with open(out, "wb") as f:
             pickle.dump({"tokens": tokens, "frames": pred_frames}, f)
 
     info_by_token = {i["token"]: i for i in dataset.infos}
@@ -193,7 +179,6 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     for pf, t in zip(pred_frames, tokens):
         pf.ego_translation = ego_origin_in_lidar(info_by_token[t])
     metrics = evaluate_detections(gt_frames, pred_frames, cfg.data.class_names)
-    print(json.dumps(metrics, indent=2, sort_keys=True))
     metrics_s = time.perf_counter() - t_metrics
 
     # ms/frame after the first batch (the workers' start-up and cuDNN's
@@ -211,9 +196,47 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         steady_peak = torch.cuda.max_memory_allocated(device)
         timing["peak_memory_gib"] = max(first_peak, steady_peak) / 2**30
         timing["steady_peak_memory_gib"] = steady_peak / 2**30
-    print(json.dumps({"timing": timing, "device": str(device), "config": args.config, "tta": args.tta}))
     return {"metrics": metrics, "tokens": tokens, "frames": pred_frames, "detections": detections,
             "timing": timing}
+
+
+def main(argv: Optional[List[str]] = None) -> Dict:
+    """Run the evaluation; returns :func:`evaluate`'s result, its set-up
+    time counting the config, the model and the checkpoint too, and its
+    peak memory the whole run's."""
+    import torch
+
+    from ..models.detector import DeepInteraction
+    from ..ops import cuda_lib
+    from ..train.checkpoint import load_weights
+    from ..utils.synthetic import init_weights
+
+    t_start = time.perf_counter()
+    args = parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass --device cpu to evaluate on the CPU")
+        cuda_lib.fp32_numerics()
+        torch.cuda.reset_peak_memory_stats(device)
+    cfg = CONFIGS[args.config]()
+    if args.cfg_options:
+        cfg = apply_overrides(cfg, dict(kv.split("=", 1) for kv in args.cfg_options))
+
+    p = cfg.test_num_proposals
+    model = DeepInteraction(cfg.model, cfg.data.padded_img_shape, num_proposals=p).to(device).eval()
+    if args.checkpoint:
+        load_weights(args.checkpoint, model)
+        print(f"loaded params from {args.checkpoint}")
+    else:
+        init_weights(model, seed=cfg.seed)
+
+    t_eval = time.perf_counter()
+    res = evaluate(model, cfg, p, args.infos, args.num_workers, device, tta=args.tta, out=args.out)
+    res["timing"]["setup_s"] += t_eval - t_start
+    print(json.dumps(res["metrics"], indent=2, sort_keys=True))
+    print(json.dumps({"timing": res["timing"], "device": str(device), "config": args.config, "tta": args.tta}))
+    return res
 
 
 if __name__ == "__main__":

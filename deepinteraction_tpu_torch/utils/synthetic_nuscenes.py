@@ -1,18 +1,26 @@
-"""A realistic-scale synthetic raw nuScenes tree (port of
-``deepinteraction_tpu/utils/synthetic_nuscenes.py::write_realistic_nuscenes``),
-written without cv2: JSON tables, LiDAR sweeps as ``.bin`` and six
-1600x900 cameras as ``.jpg``.
+"""Synthetic raw nuScenes trees (port of
+``deepinteraction_tpu/utils/synthetic_nuscenes.py``), written without cv2
+on the card: JSON tables, LiDAR sweeps as ``.bin`` and six cameras as
+``.jpg``.
 
-The tables, clouds and boxes are the JAX writer's for the same seed (the
-same numpy draws in the same order). The camera renders are made with
-tensors on ``device``: the background's upsampling is ``F.interpolate``
-(bilinear) where the JAX writer calls ``cv2.resize``, each box's convex hull
-(a numpy monotone chain, ``cv2.convexHull`` there) is filled by half-plane
-tests on the pixel grid (``cv2.fillConvexPoly`` there), and the JPEGs are
-encoded by ``ops/jpeg.py`` (nvJPEG on the card, cv2 on the CPU), quality 95
-with 4:2:0 chroma, cv2's defaults. So pixels can differ from the JAX
-writer's at polygon edges and by the upsampling's rounding. The renders are
-made in RGB; the JAX writer's colours are BGR, as cv2 writes them.
+:func:`write_synthetic_nuscenes` is the tiny tree (one scene, 500-point
+clouds, one random 32x24 image for every camera) of the tests and demos.
+Its tables and clouds are the JAX writer's for the same seed; its JPEG is
+encoded by ``ops/jpeg.py`` at quality 95 (cv2's default): on the CPU with
+cv2, so the tree is the JAX writer's byte for byte, and on the card with
+nvJPEG.
+
+:func:`write_realistic_nuscenes` is the realistic-scale tree. Its tables,
+clouds and boxes are the JAX writer's for the same seed (the same numpy
+draws in the same order). The camera renders are made with tensors on
+``device``: the background's upsampling is ``F.interpolate`` (bilinear)
+where the JAX writer calls ``cv2.resize``, each box's convex hull (a numpy
+monotone chain, ``cv2.convexHull`` there) is filled by half-plane tests on
+the pixel grid (``cv2.fillConvexPoly`` there), and the JPEGs are encoded
+by ``ops/jpeg.py`` (nvJPEG on the card, cv2 on the CPU), quality 95 with
+4:2:0 chroma, cv2's defaults. So pixels can differ from the JAX writer's
+at polygon edges and by the upsampling's rounding. The renders are made in
+RGB; the JAX writer's colours are BGR, as cv2 writes them.
 """
 
 from __future__ import annotations
@@ -53,6 +61,192 @@ def _rot_to_quat(rot: np.ndarray) -> list:
         q[0] = (rot[off[k][0], off[k][1]] - rot[off[k][1], off[k][0]]) / (4 * x)
     np.testing.assert_allclose(quat_to_rot(np.asarray(q)), rot, atol=1e-6)
     return [float(v) for v in q]
+
+
+PTS_PER_CLOUD = 500
+
+
+def _write_cloud(path: str, rng: np.random.Generator, n: int = PTS_PER_CLOUD):
+    pts = rng.uniform(-6, 6, size=(n, 5)).astype(np.float32)
+    pts[:, 2] = rng.uniform(-3, 2, size=n)
+    pts[:, 4] = 0
+    pts.tofile(path)
+
+
+def write_synthetic_nuscenes(
+    root: str,
+    num_samples: int = 3,
+    version: str = "v1.0-mini",
+    scene_name: str = "scene-9001",
+    seed: int = 0,
+    image_hw: tuple = (24, 32),
+    device="cuda",
+) -> str:
+    """A tiny raw nuScenes tree the converter accepts: a 6-camera rig,
+    keyframe LiDAR plus one intermediate sweep, and two annotated instances
+    per sample moving at 1 m/s along +x. The camera image is encoded on
+    ``device``."""
+    os.makedirs(f"{root}/{version}", exist_ok=True)
+    rng = np.random.default_rng(seed)
+
+    ident = [1.0, 0.0, 0.0, 0.0]
+    sensors = [{"token": "sen_lidar", "channel": "LIDAR_TOP", "modality": "lidar"}]
+    cals = [
+        {
+            "token": "cal_lidar",
+            "sensor_token": "sen_lidar",
+            "rotation": ident,
+            "translation": [0.0, 0.0, 1.8],
+            "camera_intrinsic": [],
+        }
+    ]
+    for i, cam in enumerate(CAM_ORDER):
+        sensors.append({"token": f"sen_{cam}", "channel": cam, "modality": "camera"})
+        ang = 2 * np.pi * i / 6
+        # columns are the camera axes in the ego frame: x=(sin,-cos,0) right,
+        # y=(0,0,-1) down, z=(cos,sin,0) forward (proper rotation, det=+1)
+        rot = np.array(
+            [
+                [np.sin(ang), 0.0, np.cos(ang)],
+                [-np.cos(ang), 0.0, np.sin(ang)],
+                [0.0, -1.0, 0.0],
+            ]
+        )
+        cals.append(
+            {
+                "token": f"cal_{cam}",
+                "sensor_token": f"sen_{cam}",
+                "rotation": _rot_to_quat(rot),
+                "translation": [0.0, 0.0, 1.5],
+                "camera_intrinsic": [
+                    [20.0, 0.0, 16.0],
+                    [0.0, 20.0, 12.0],
+                    [0.0, 0.0, 1.0],
+                ],
+            }
+        )
+
+    samples, sample_datas, ego_poses, anns = [], [], [], []
+    h, w = image_hw
+    bgr = (rng.uniform(0, 255, size=(h, w, 3))).astype(np.uint8)  # the JAX writer's cv2 image
+    img = jpeg.encode(torch.from_numpy(np.ascontiguousarray(bgr[:, :, ::-1])).to(device), quality=95)
+    for s in range(num_samples):
+        stok = f"sample{s}"
+        ts = 1_000_000 * (s + 1)
+        samples.append(
+            {
+                "token": stok,
+                "timestamp": ts,
+                "scene_token": "scene0",
+                "prev": f"sample{s-1}" if s > 0 else "",
+                "next": f"sample{s+1}" if s < num_samples - 1 else "",
+            }
+        )
+        ego_poses.append(
+            {
+                "token": f"ego{s}",
+                "rotation": ident,
+                "translation": [float(s), 0.0, 0.0],
+                "timestamp": ts,
+            }
+        )
+        lp = f"samples/LIDAR_TOP/pc{s}.bin"
+        os.makedirs(os.path.dirname(f"{root}/{lp}"), exist_ok=True)
+        _write_cloud(f"{root}/{lp}", rng)
+        sample_datas.append(
+            {
+                "token": f"sd_lidar{s}",
+                "sample_token": stok,
+                "ego_pose_token": f"ego{s}",
+                "calibrated_sensor_token": "cal_lidar",
+                "filename": lp,
+                "is_key_frame": True,
+                "timestamp": ts,
+                "prev": f"sd_sweep{s}" if s > 0 else "",
+                "next": "",
+            }
+        )
+        if s > 0:
+            sp = f"sweeps/LIDAR_TOP/sw{s}.bin"
+            os.makedirs(os.path.dirname(f"{root}/{sp}"), exist_ok=True)
+            _write_cloud(f"{root}/{sp}", rng)
+            sample_datas.append(
+                {
+                    "token": f"sd_sweep{s}",
+                    "sample_token": stok,
+                    "ego_pose_token": f"ego{s}",
+                    "calibrated_sensor_token": "cal_lidar",
+                    "filename": sp,
+                    "is_key_frame": False,
+                    "timestamp": ts - 50_000,
+                    "prev": "",
+                    "next": f"sd_lidar{s}",
+                }
+            )
+        for cam in CAM_ORDER:
+            ip = f"samples/{cam}/img{s}.jpg"
+            os.makedirs(os.path.dirname(f"{root}/{ip}"), exist_ok=True)
+            img.tofile(f"{root}/{ip}")
+            sample_datas.append(
+                {
+                    "token": f"sd_{cam}{s}",
+                    "sample_token": stok,
+                    "ego_pose_token": f"ego{s}",
+                    "calibrated_sensor_token": f"cal_{cam}",
+                    "filename": ip,
+                    "is_key_frame": True,
+                    "timestamp": ts,
+                    "prev": "",
+                    "next": "",
+                    # real nuScenes camera sample_datas carry these
+                    "width": w,
+                    "height": h,
+                }
+            )
+        for a in range(2):
+            anns.append(
+                {
+                    "token": f"ann{s}_{a}",
+                    "sample_token": stok,
+                    "instance_token": f"inst{a}",
+                    "translation": [2.0 + s + a, 1.0 - a, 0.5],
+                    "size": [1.8, 4.2, 1.6],  # (w, l, h)
+                    "rotation": ident,
+                    "prev": f"ann{s-1}_{a}" if s > 0 else "",
+                    "next": f"ann{s+1}_{a}" if s < num_samples - 1 else "",
+                    "num_lidar_pts": 10,
+                    "num_radar_pts": 0,
+                }
+            )
+    tables = {
+        "sample": samples,
+        "sample_data": sample_datas,
+        "ego_pose": ego_poses,
+        "calibrated_sensor": cals,
+        "sensor": sensors,
+        "sample_annotation": anns,
+        "instance": [
+            {"token": "inst0", "category_token": "cat_car"},
+            {"token": "inst1", "category_token": "cat_ped"},
+        ],
+        "category": [
+            {"token": "cat_car", "name": "vehicle.car"},
+            {"token": "cat_ped", "name": "human.pedestrian.adult"},
+        ],
+        "scene": [
+            {
+                "token": "scene0",
+                "name": scene_name,
+                "first_sample_token": "sample0",
+                "log_token": "log0",
+            }
+        ],
+        "log": [{"token": "log0", "location": "synthetic"}],
+    }
+    for name, rows in tables.items():
+        with open(f"{root}/{version}/{name}.json", "w") as f:
+            json.dump(rows, f)
+    return root
 
 
 # (category name, mean (w, l, h), speed range m/s, BGR render color)

@@ -158,15 +158,6 @@ def test_train_flip_fires_in_the_seeds(tree):
     assert any(flips) and not all(flips), flips
 
 
-def test_build_sample_refuses_gt_paste(tree):
-    _, jpath, _ = tree
-    _, tcfg = _cfgs()
-    with open(jpath, "rb") as f:
-        info = pickle.load(f)["infos"][0]
-    with pytest.raises(NotImplementedError, match="gt_database"):
-        tpipe.build_sample(info, tcfg, True, np.random.default_rng(0), sampler=object())
-
-
 @pytest.mark.parametrize("train,workers", [(False, 1), (True, 0)])
 def test_loader_batches_match_jax(tree, train, workers):
     _, jpath, tpath = tree
@@ -186,14 +177,16 @@ def test_loader_batches_match_jax(tree, train, workers):
 
 def test_loader_workers_import_no_torch():
     """What a loader worker imports (the pipeline, the dataset, the loader,
-    and the eval CLI's module, which a spawned worker imports as the
-    program's main module) pulls in numpy and no torch: spawned workers
-    start in well under a second instead of importing torch each."""
+    and the module of the CLI that started it, eval, train or benchmark,
+    which a spawned worker imports as the program's main module) pulls in
+    numpy and no torch: spawned workers start in well under a second
+    instead of importing torch each."""
     import subprocess
     import sys
 
     code = ("import sys\nimport deepinteraction_tpu_torch.data.loader\n"
-            "import deepinteraction_tpu_torch.tools.test\n"
+            "import deepinteraction_tpu_torch.tools.test\nimport deepinteraction_tpu_torch.tools.train\n"
+            "import deepinteraction_tpu_torch.tools.benchmark\n"
             "assert 'torch' not in sys.modules, sorted(m for m in sys.modules if 'torch' in m)[:5]\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
                           cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))

@@ -46,7 +46,8 @@ def test_port_imports_without_jax():
     assert "deepinteraction_tpu_torch.ops.subm_conv" in mods
     for new in ("ops.nms", "ops.jpeg", "ops.images", "eval.tta", "eval.nuscenes_metrics", "eval.results",
                 "data.pipeline", "data.loader", "data.dataset", "data.nuscenes_converter", "data.splits",
-                "utils.synthetic_nuscenes", "utils.torch_convert", "tools.test", "tools.convert_torch_ckpt"):
+                "utils.synthetic_nuscenes", "utils.torch_convert", "tools.test", "tools.convert_torch_ckpt",
+                "data.gt_database", "data.anno_2d", "tools.train", "tools.benchmark", "tools.create_data"):
         assert f"deepinteraction_tpu_torch.{new}" in mods, new
     code = (
         "import runpy, sys\n"
