@@ -240,6 +240,7 @@ from deepinteraction_tpu_torch.ops import subm_conv as smc
 from deepinteraction_tpu_torch.ops.voxelize import voxelize
 from deepinteraction_tpu_torch.profile_train import MODULES, fenced_module_times, timed_step
 from deepinteraction_tpu_torch.targets import assign
+from deepinteraction_tpu_torch.tools import ensemble
 from deepinteraction_tpu_torch.tools import test as test_cli
 from deepinteraction_tpu_torch.train.checkpoint import save_checkpoint
 from deepinteraction_tpu_torch.train.step import TrainStep
@@ -293,6 +294,15 @@ STATS_TOL, FUSION_STATS_TOL = 1e-5, 1e-4
 # boxes barely overlap (mean ~3e-5 at tiny_config), so a 1e-6 move of a box
 # edge moves it by percents; it is held absolutely
 IOU_ATOL = 1e-5
+# phase 23: the first step under torchrun at one rank against one process,
+# relative (a group of one computes the one-process arithmetic; what is
+# left is the two processes' cuDNN algorithm choices); the eval CLI's boxes
+# and scores, of scale (no collective in its forward)
+DIST_LOSS_RTOL = 1e-4
+DIST_EVAL_TOL = 1e-5
+# phase 24: the eval CLI on the folded checkpoint against the unfolded one,
+# of scale
+FOLD_TOL = 1e-4
 REPS, WARMUP, BATCH = 10, 3, 5
 # Phase 18: the card's decode against libjpeg's pixels (cv2.imread of the
 # committed fixtures), max and mean abs levels. nvJPEG's own RGB output
@@ -1664,7 +1674,8 @@ def run_eval_cli(dev, gen):
             f"{nms[kind]:.3f} ms a batch on the card (host clock, one host sync, median of {REPS}); "
             f"CLI fps {r['timing']['fps']:.3f}, mAP {r['metrics']['mAP']:.4f}, NDS {r['metrics']['NDS']:.4f}")
 
-    tta = test_cli.main(argv + ["--tta"])
+    tta_out = os.path.join(SMOKE_DIR, "frames_tta.pkl")
+    tta = test_cli.main(argv + ["--tta", "--out", tta_out])
     assert len(tta["frames"]) == len(infos)
     for f in tta["frames"]:
         assert np.isfinite(f.boxes).all() and np.isfinite(f.scores).all()
@@ -1704,16 +1715,18 @@ def run_eval_cli(dev, gen):
         f"{res['timing']['fps']:.3f} fps, TTA {tt['fps']:.3f} fps, {tt['ms_per_frame_total']:.3f} ms/frame "
         f"(no workers); NMS circle {nms['circle']:.3f} ms, rotate {nms['rotate']:.3f} ms a batch; metrics "
         + json.dumps(res["metrics"], sort_keys=True))
-    return launches, stats, k1_real, ckpt
+    return launches, stats, k1_real, {"ckpt": ckpt, "val": val, "frames": out, "frames_tta": tta_out}
 
 
-def run_cli(name: str, *args: str, timeout: int = 900) -> tuple:
+def run_cli(name: str, *args: str, timeout: int = 900, torchrun: bool = False) -> tuple:
     """``python -m deepinteraction_tpu_torch.tools.<name> args`` in a
-    process of its own, as a user runs it; returns (its last line as JSON,
-    or None if that line is not JSON, the wall seconds). A non-zero exit
-    raises."""
+    process of its own, as a user runs it (with ``torchrun``, one rank
+    under ``python -m torch.distributed.run --standalone --nproc-per-node
+    1``); returns (its last line as JSON, or None if that line is not JSON,
+    the wall seconds). A non-zero exit raises."""
+    launcher = ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1"] if torchrun else []
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", f"deepinteraction_tpu_torch.tools.{name}", *args],
+    proc = subprocess.run([sys.executable, *launcher, "-m", f"deepinteraction_tpu_torch.tools.{name}", *args],
                           capture_output=True, text=True, timeout=timeout, cwd=REPO)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -1736,15 +1749,16 @@ def read_train_run(work: str, summary: dict, metric_keys: set, label: str) -> di
     for r in rows:
         assert set(r) == metric_keys | TRAIN_LOG_EXTRA, (label, sorted(set(r) ^ (metric_keys | TRAIN_LOG_EXTRA)))
         assert all(np.isfinite(v) for v in r.values()), (label, r)
-    proc = subprocess.run([sys.executable, os.path.join(REPO, "tools", "analyze_logs.py"), "cal_train_time",
-                           os.path.join(work, "train_log.jsonl")], capture_output=True, text=True, timeout=120)
+    proc = subprocess.run([sys.executable, "-m", "deepinteraction_tpu_torch.tools.analyze_logs", "cal_train_time",
+                           os.path.join(work, "train_log.jsonl")], capture_output=True, text=True, timeout=120,
+                          cwd=REPO)
     assert proc.returncode == 0 and "iter time: mean" in proc.stdout, proc.stderr[-2000:]
     steady = rows[2:] or rows
     t = {"ms_per_step": statistics.median(r["time"] for r in steady) * 1e3,
          "data_ms": statistics.median(r["data_time"] for r in steady) * 1e3,
          "first_step_s": rows[0]["time"], "first_data_s": rows[0]["data_time"], "steps": len(rows),
          "peak_gib": summary["peak_memory_gib"], "steady_peak_gib": summary["steady_peak_memory_gib"],
-         "wall_s": summary["seconds"]}
+         "wall_s": summary["seconds"], "first": rows[0]}
     log(f"train CLI {label}: config.json {config}; {len(rows)} steps {rows[0]['step']}-{rows[-1]['step']}, every "
         f"loss finite, log keys those of TrainStep's metrics + {sorted(TRAIN_LOG_EXTRA)}, analyze_logs "
         f"cal_train_time: {proc.stdout.strip().splitlines()[0]}; ms/step {t['ms_per_step']:.3f} (median after the "
@@ -1757,10 +1771,12 @@ def read_train_run(work: str, summary: dict, metric_keys: set, label: str) -> di
     return t
 
 
-def run_train_cli(dev, ckpt: str, measured: dict) -> dict:
+def run_train_cli(dev, ckpt: str, measured: dict) -> tuple:
     """Phases 20-22: the data-preparation, train and benchmark CLIs, each
     as ``python -m deepinteraction_tpu_torch.tools.<cli>`` in a process of
-    its own. Returns each path's kernel launches (as the CLIs count them)."""
+    its own. Returns each path's kernel launches (as the CLIs count them),
+    and the train pkl and the ``fusion_base`` run from ``--load-from`` for
+    phase 23."""
     root = os.path.join(SMOKE_DIR, "train_tree")
     _, wall = run_cli("create_data", "synthetic", "--root", root, "--profile", "realistic",
                            "--num-scenes", str(TRAIN_TREE[0]), "--num-samples", str(TRAIN_TREE[1]),
@@ -1863,12 +1879,107 @@ def run_train_cli(dev, ckpt: str, measured: dict) -> dict:
         f"step {lidar_t['steady_peak_gib']:.3f}, {fusion_t['steady_peak_gib']:.3f}, "
         f"{resumed_t['steady_peak_gib']:.3f} GiB")
     fusion_label = f"fusion_base train CLI (tools.train), 2 runs of {steps} steps, B=2"
-    return {f"lidar_only train CLI (tools.train), {steps} steps, B=2": lidar["launches"],
+    fusion_run = {"train_pkl": train_pkl, "first": fusion_t["first"], "ms_per_step": fusion_t["ms_per_step"],
+                  "launches": fusion["launches"], "steps": steps}
+    return fusion_run, {f"lidar_only train CLI (tools.train), {steps} steps, B=2": lidar["launches"],
             fusion_label: {k: fusion["launches"][k] + resumed["launches"][k] for k in fusion_step},
             fusion_label + ", their --eval-infos evaluations": {
                 k: fusion["eval_launches"][k] + resumed["eval_launches"][k] for k in fusion_step},
             **{f"fusion_base benchmark CLI (tools.benchmark), {k}, {REPS} timed": v["launches"]
                for k, v in bench.items()}}
+
+
+def run_dist(paths: dict, fusion_run: dict, eval_launches: dict) -> dict:
+    """Phases 23-24: the train and eval CLIs under ``torchrun`` at one rank
+    (a NCCL group of one: the BN, normaliser and gradient all-reduces run),
+    then the folding, eval-with-folded-weights and ensemble tools. Returns
+    the two ``torchrun`` paths' kernel launches."""
+    t_start = time.perf_counter()
+    # the folding is an offline CPU conversion: it runs beside phase 23
+    fused = os.path.join(SMOKE_DIR, "ckpt_fused")
+    fold = subprocess.Popen([sys.executable, "-m", "deepinteraction_tpu_torch.tools.misc_tools", "fuse_conv_bn",
+                             "fusion_base", "--checkpoint", paths["ckpt"], "--out", fused],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=REPO)
+    try:
+        work = os.path.join(SMOKE_DIR, "train_dist")
+        train, wall = run_cli("train", "fusion_base", "--infos", fusion_run["train_pkl"], "--work-dir", work,
+                              "--load-from", paths["ckpt"], "--cfg-options", "optim.log_interval_steps=1",
+                              "optim.total_epochs=1", torchrun=True)
+        t = read_train_run(work, train, set(fusion_run["first"]) - TRAIN_LOG_EXTRA,
+                           "fusion_base under torchrun, 1 rank, 1 epoch from --load-from")
+        assert train["ranks"] == 1 and train["steps"] == fusion_run["steps"], train
+        assert train["launches"] == fusion_run["launches"], (train["launches"], fusion_run["launches"])
+        first, ref = t["first"], fusion_run["first"]
+        losses = [k for k in ref if k not in TRAIN_LOG_EXTRA]
+        rel = {k: abs(first[k] - ref[k]) / max(abs(ref[k]), 1e-30) for k in losses}
+        calls, n_bytes = train["collectives"]["calls"] / train["steps"], train["collectives"]["bytes"] / train["steps"]
+        log(f"train CLI under torchrun (1 rank, NCCL, {wall:.1f} s wall): first step against phase 21's "
+            f"single-process run on the same seed and checkpoint: max rel err {max(rel.values()):.3e} (tolerance "
+            f"{DIST_LOSS_RTOL}; worst {max(rel, key=rel.get)}); ms/step {t['ms_per_step']:.3f} against "
+            f"{fusion_run['ms_per_step']:.3f} single-process (the difference is the process group's cost at "
+            f"world 1); {calls:.1f} collectives and {n_bytes / 2**20:.3f} MiB all-reduced a step; launches "
+            f"{train['launches']}")
+        assert all(v <= DIST_LOSS_RTOL for v in rel.values()), rel
+        assert calls > 0 and n_bytes > 0, train["collectives"]
+
+        out = os.path.join(SMOKE_DIR, "frames_dist.pkl")
+        ev, wall = run_cli("test", "fusion_base", "--infos", paths["val"], "--checkpoint", paths["ckpt"],
+                           "--out", out, torchrun=True)
+        with open(out, "rb") as f:
+            got = pickle.load(f)
+        with open(paths["frames"], "rb") as f:
+            want = pickle.load(f)
+        assert got["tokens"] == want["tokens"], "the torchrun eval evaluated other frames or another order"
+        worst = 0.0
+        for a, b in zip(got["frames"], want["frames"]):
+            assert len(a.boxes) == len(b.boxes) and np.array_equal(a.names, b.names)
+            if len(b.boxes):
+                worst = max(worst, np.abs(a.boxes - b.boxes).max() / np.abs(b.boxes).max(),
+                            np.abs(a.scores - b.scores).max() / np.abs(b.scores).max())
+        log(f"eval CLI under torchrun (1 rank, NCCL, {wall:.1f} s wall): {len(got['tokens'])} frames, tokens and "
+            f"order those of phase 19's single-process --out, boxes and scores max rel err {worst:.3e} (tolerance "
+            f"{DIST_EVAL_TOL} of scale); {ev['timing']['fps']:.3f} fps, {ev['timing']['ms_per_frame_total']:.3f} "
+            f"ms/frame; launches {ev['launches']}")
+        assert worst <= DIST_EVAL_TOL, worst
+        assert ev["launches"] == eval_launches, (ev["launches"], eval_launches)
+        fold_log = fold.communicate(timeout=600)[0]
+    finally:
+        fold.kill()
+    assert fold.returncode == 0, fold_log[-4000:]
+
+    # the folded checkpoint through the eval CLI, in this process, against
+    # the unfolded one with the unfolded run's sort orders replayed
+    argv = ["fusion_base", "--infos", paths["val"], "--num-workers", "0"]
+    orders, flips = [], []
+    with sort_orders(orders, False, flips):
+        plain = test_cli.main(argv + ["--checkpoint", paths["ckpt"]])
+    with sort_orders(orders, True, flips):
+        folded = test_cli.main(argv + ["--checkpoint", fused])
+    errs, same_labels, same_keep = {"boxes": 0.0, "scores": 0.0}, True, 0
+    for a, b in zip(folded["detections"], plain["detections"]):
+        for k in errs:
+            errs[k] = max(errs[k], rel_err(getattr(a, k), getattr(b, k))[1])
+        same_labels &= torch.equal(a.labels, b.labels)
+        same_keep += int((a.keep != b.keep).sum())
+    fp, ff = plain["timing"]["ms_per_frame"], folded["timing"]["ms_per_frame"]
+    log(f"misc_tools fuse_conv_bn: {fold_log.strip().splitlines()[-1]}; the eval CLI on the folded checkpoint "
+        f"against the unfolded one (in this process, {sum(flips)} of {len(flips)} sorts replayed differed): max "
+        f"rel err boxes {errs['boxes']:.3e}, scores {errs['scores']:.3e} (tolerance {FOLD_TOL} of scale), labels "
+        f"equal {same_labels}, keep flags differing {same_keep}; ms/frame unfolded {plain['timing']['ms_per_frame_total']:.3f} "
+        f"(forward {fp['forward']:.3f}), folded {folded['timing']['ms_per_frame_total']:.3f} (forward "
+        f"{ff['forward']:.3f}); the neutralised BNs still run, so no gain is expected")
+    assert all(v <= FOLD_TOL for v in errs.values()) and same_labels, (errs, same_labels)
+    assert plain["metrics"].keys() == folded["metrics"].keys()
+
+    t0 = time.perf_counter()
+    metrics = ensemble.main([paths["frames"], paths["frames_tta"], "--infos", paths["val"],
+                             "--out", os.path.join(SMOKE_DIR, "fused.pkl")])
+    log(f"tools.ensemble over phase 19's plain and --tta --out ({time.perf_counter() - t0:.1f} s): NDS "
+        f"{metrics['NDS']:.6f}, mAP {metrics['mAP']:.6f}")
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    log(f"phases 23-24 took {time.perf_counter() - t_start:.1f} s")
+    return {f"fusion_base train CLI under torchrun (1 rank, NCCL), {train['steps']} steps, B=2": train["launches"],
+            "fusion_base eval CLI under torchrun (1 rank, NCCL), 9 frames, B=2": ev["launches"]}
 
 
 def main() -> int:
@@ -1900,11 +2011,12 @@ def main() -> int:
     pp_launches = run_pp(dev)
     pp_train_launches = run_pp_train(dev)
     try:
-        cli_launches, _, k1_real, ckpt = run_eval_cli(dev, gen)
+        cli_launches, _, k1_real, paths = run_eval_cli(dev, gen)
         measured = {"eval_ms": slice_t["ms"], "eval_peak_gib": slice_t["peak_gib"], "fusion_ms": fusion_t["ms"],
                     "fusion_peak_gib": fusion_t["peak_gib"], "lidar_keys": lidar_t["metric_keys"],
                     "fusion_keys": fusion_t["metric_keys"]}
-        cli_paths = run_train_cli(dev, ckpt, measured)
+        fusion_run, cli_paths = run_train_cli(dev, paths["ckpt"], measured)
+        cli_paths.update(run_dist(paths, fusion_run, cli_launches))
     finally:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
 

@@ -6,8 +6,14 @@ point and sweep loading, the matrices, the augmentations, the JPEG bytes)
 and return numpy arrays and bytes; a thread in the parent keeps
 ``prefetch`` batches in flight. ``ops/images.py::to_device`` then moves a
 batch to the device and runs the image stage there (the JPEGs are decoded
-on the card). Distribution across processes (the JAX loader's
-``process_index`` / ``process_count``) is not ported yet.
+on the card).
+
+Across ranks (``process_index`` of ``process_count``, as the JAX loader
+has them; ``parallel/input.py`` has the rules) every rank sees the same
+globally shuffled index list: train takes this rank's
+``process_shard_indices``, trimmed so that every rank runs the same number
+of batches; eval takes the stride shard, each rank padding its own last
+batch. ``batch_size`` is then the rank's local batch.
 
 The parent has CUDA initialised, so the workers are spawned, not forked.
 A spawned process imports the program's main module before it runs
@@ -26,6 +32,7 @@ import queue
 import threading
 from typing import Dict, Iterator, Optional
 
+from ..parallel.input import process_shard_indices
 from .pipeline import collate
 
 _WORKER_DS = None
@@ -52,11 +59,14 @@ class DataLoader:
     final batch by repeating its last sample and reports ``pad_count``.
     """
 
-    def __init__(self, dataset, batch_size: int, num_workers: int = 4, prefetch: int = 2):
+    def __init__(self, dataset, batch_size: int, num_workers: int = 4, prefetch: int = 2,
+                 process_index: int = 0, process_count: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = num_workers
         self.prefetch = prefetch
+        self.process_index = process_index
+        self.process_count = process_count
         self._pool = None
 
     def _ensure_pool(self):
@@ -70,6 +80,11 @@ class DataLoader:
         shuffle = train if shuffle is None else shuffle
         idx = self.dataset.epoch_indices(epoch, shuffle)
         bs = self.batch_size
+        if self.process_count > 1:
+            if train:
+                idx = process_shard_indices(idx, bs, self.process_index, self.process_count)
+            else:
+                idx = idx[self.process_index :: self.process_count]
         if train:
             batches = [(list(idx[i * bs : (i + 1) * bs]), 0) for i in range(len(idx) // bs)]
         else:

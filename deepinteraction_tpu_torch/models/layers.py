@@ -15,6 +15,14 @@ in place at torch momentum ``m`` (``running = (1 - m) * running + m * stat``).
 - ``MaskedBatchNorm`` is the JAX ``MaskedBatchNorm``: statistics over the
   valid rows, two-pass variance, and an **unbiased** running variance.
 
+Train-mode statistics are taken from sums over a count. Under a process
+group (``parallel/mesh.py``) they span the global batch, as JAX's
+data-parallel program takes them: the local sums and count are all-reduced
+in one collective (two for the masked form's two passes), which carries the
+gradient, and the rest of the arithmetic is the one-process arithmetic, so
+a group of one computes the same bits as no group. In eval there is no
+collective.
+
 Dropout masks are drawn from the ``torch.Generator`` the caller passes.
 """
 
@@ -27,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dropout import apply_dropout
+from ..parallel.mesh import all_reduce
 
 
 class Conv2d(nn.Conv2d):
@@ -74,8 +83,10 @@ class BatchNorm(nn.Module):
         if not train:
             return self._normalize(x, self.running_mean, self.running_var)
         dims = tuple(range(x.dim() - 1))
-        mean = x.mean(dims)
-        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        c = x.shape[-1]
+        s = all_reduce(torch.cat([x.sum(dims), (x * x).sum(dims), x.new_full((1,), x.numel() // c)]), grad=True)
+        mean = s[:c] / s[-1]
+        var = torch.clamp(s[c:2 * c] / s[-1] - mean * mean, min=0.0)
         self._update(mean, var)
         return self._normalize(x, mean, var)
 
@@ -89,9 +100,10 @@ class MaskedBatchNorm(BatchNorm):
         if train:
             dims = tuple(range(x.dim() - 1))
             m = mask[..., None].to(x.dtype)
-            cnt = torch.clamp(m.sum(), min=1.0)
-            mean = (x * m).sum(dims) / cnt
-            var = (m * (x - mean) ** 2).sum(dims) / cnt
+            s = all_reduce(torch.cat([(x * m).sum(dims), m.sum().reshape(1)]), grad=True)
+            cnt = torch.clamp(s[-1], min=1.0)
+            mean = s[:-1] / cnt
+            var = all_reduce((m * (x - mean) ** 2).sum(dims), grad=True) / cnt
             self._update(mean, var * cnt / torch.clamp(cnt - 1.0, min=1.0))
             y = self._normalize(x, mean, var)
         else:

@@ -8,6 +8,14 @@ BEV L1, rotated 3D IoU), one host round trip for the Hungarian matching,
 then the targets and losses on the device. GT boxes arrive padded to G with
 a mask. In LiDAR-only mode (``num_mmpi=0``) there is one output layer and no
 on-image mask.
+
+Under a process group (``parallel/mesh.py``) every loss normaliser is summed
+over the ranks before it divides, as JAX's data-parallel program sums it
+over the global batch: ``matched_ious``' match count (one all-reduce in
+:func:`build_targets`), the heatmap's positives and each layer's ``npos``
+(one in :func:`detection_loss`). A rank's loss terms are
+then its local sums over the global normalisers, whose sum over the ranks
+is the global loss.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from ..configs import AssignerConfig, BBoxCoderConfig, DecoderConfig
 from ..ops.gaussian import draw_heatmap, gaussian_radius
 from ..ops.hungarian import hungarian_assign
 from ..ops.rotated_iou import iou_3d
+from ..parallel.mesh import all_reduce
 from .coder import TransFusionBBoxCoder
 from .losses import clip_sigmoid, gaussian_focal_loss, sigmoid_focal_loss, weighted_l1_loss
 
@@ -79,7 +88,7 @@ def build_targets(
         bev_shape[0] * ccfg.voxel_size[1] * ccfg.out_size_factor,
     ])
     cost = torch.empty(b, nl, p, g, device=dev)
-    iou = torch.empty(b, nl, p, g, device=dev)
+    iou = torch.empty(b, nl, p, g, device=dev, dtype=boxes.dtype)
     for i in range(b):
         ng = (gt_boxes[i, :, :2] - origin) / extent
         for li in range(nl):
@@ -123,7 +132,8 @@ def build_targets(
         heatmaps.append(draw_heatmap(centers, radius, gt_labels[i], ok, num_classes=ncls,
                                      height=hb, width=wb))
 
-    npos = matched.sum()
+    # the global match count: this rank's term is its share of the global mean
+    npos = all_reduce(matched.sum().to(iou_t.dtype))
     return Targets(
         labels=labels_t.reshape(b, nl * p),
         label_weights=label_w.reshape(b, nl * p),
@@ -173,9 +183,11 @@ def detection_loss(
     losses: Dict[str, torch.Tensor] = {}
     hm_pred = clip_sigmoid(preds["dense_heatmap"])  # [B, Hb, Wb, ncls]
     hm_tgt = t.heatmap.permute(0, 2, 3, 1)
-    losses["loss_heatmap"] = dcfg.loss_heatmap_weight * gaussian_focal_loss(
-        hm_pred, hm_tgt, (hm_tgt == 1.0).float().sum()
-    )
+    # the normalisers: the heatmap's positives, then each layer's npos
+    norms = torch.stack([(hm_tgt == 1.0).float().sum()] + [bbox_w[:, li].amax(-1).sum() for li in range(nl)]
+                        ).to(hm_pred.dtype)
+    norms = all_reduce(norms)
+    losses["loss_heatmap"] = dcfg.loss_heatmap_weight * gaussian_focal_loss(hm_pred, hm_tgt, norms[0])
 
     labels = t.labels.reshape(b, nl, p)
     bbox_t = t.bbox_targets.reshape(b, nl, p, -1)
@@ -186,7 +198,7 @@ def detection_loss(
     ).reshape(b, nl, p, -1)
     total = 0.0
     for li in range(nl):
-        npos = bbox_w[:, li].amax(-1).sum()
+        npos = norms[1 + li]
         lcls = dcfg.loss_cls_weight * sigmoid_focal_loss(
             heat[:, li], labels[:, li], label_w[:, li], npos, dcfg.loss_cls_gamma, dcfg.loss_cls_alpha
         )

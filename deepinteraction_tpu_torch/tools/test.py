@@ -18,8 +18,15 @@ on the card (nvJPEG). ``--checkpoint`` takes a port checkpoint directory
 (``train/checkpoint.py``; ``tools/convert_torch_ckpt.py`` makes one from a
 reference ``.pth``); without it the weights are random from ``cfg.seed``.
 The loop is :func:`evaluate`, which the train CLI's ``--eval-infos`` runs
-too. Single process: the JAX CLI's multi-host sharding and result
-gathering are not ported yet.
+too.
+
+Under ``torchrun`` (``deepinteraction_tpu_torch/tools/dist_test.sh``) each
+rank evaluates its stride shard of the val split (``data/loader.py``), with
+no collective in the forward, and ``parallel/input.py::gather_results``
+brings the (token, frame) pairs to rank 0, the rank shards in rank order
+(the JAX CLI's order). Rank 0 alone scores, writes ``--out`` and prints the
+metrics; its timings are its own shard's. The last line printed is a JSON
+summary with the timings and this process's kernel launches.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from ..configs import (
 from ..data import DataLoader, NuScenesDataset
 from ..eval.nuscenes_metrics import DetectionFrame, evaluate_detections
 from ..eval.results import default_attribute, ego_origin_in_lidar, gt_frame_from_info, predictions_to_frame
+from ..parallel.input import gather_results
 
 CONFIGS = {
     "fusion_base": fusion_base_config,
@@ -71,6 +79,16 @@ def parse_args(argv: Optional[List[str]] = None):
     return p.parse_args(argv)
 
 
+def launch_counts() -> Dict[str, int]:
+    """The port's kernel launch counters (each wrapper counts the launches
+    of its kernel in this process)."""
+    from ..ops import local_attention as la
+    from ..ops import subm_conv as smc
+
+    return {f.__name__: f.launches for f in (smc.subm_conv_gemm, smc.subm_conv_dgrad, smc.subm_conv_wgrad,
+                                             la.local_attn_fwd, la.local_attn_bwd)}
+
+
 def _frame_from_fused(boxes, scores, labels, class_names) -> DetectionFrame:
     names = np.asarray([class_names[int(j)] for j in labels])
     vel = boxes[:, 7:9]
@@ -84,10 +102,13 @@ def evaluate(model, cfg, num_proposals: int, infos: str, num_workers: int, devic
     ``infos`` at the proposal count ``num_proposals``, loading through
     ``num_workers`` spawned workers: decode boxes (``get_bboxes``, or
     double-flip TTA with ``tta``), write the raw frames to ``out`` if
-    given, and score them with the nuScenes metrics.
+    given, and score them with the nuScenes metrics. Under a process group
+    each rank evaluates its shard of the split and rank 0 gathers, writes
+    and scores them; the other ranks return ``None``.
 
-    Returns the metrics, the frames and their tokens, the raw detections of
-    every batch (on the CPU; not with ``tta``), and the timings: fps; the
+    Returns the metrics, the frames and their tokens (every rank's), the
+    raw detections of this rank's batches (on the CPU; not with ``tta``),
+    and this rank's timings: fps; the
     seconds of set-up (the dataset and loader), of the first batch and of
     the metrics; ms/frame after the first batch, split into loader wait,
     decode (the image stage: JPEG decode, resize, normalise, pad, and the
@@ -100,6 +121,7 @@ def evaluate(model, cfg, num_proposals: int, infos: str, num_workers: int, devic
     from ..eval.tta import tta_inference
     from ..inference import Detections, get_bboxes
     from ..ops.images import to_device
+    from ..parallel.mesh import rank, world_size
 
     t_start = time.perf_counter()
     device = torch.device(device)
@@ -107,7 +129,8 @@ def evaluate(model, cfg, num_proposals: int, infos: str, num_workers: int, devic
     if not len(dataset):
         raise ValueError(f"{infos} holds no samples")
     batch_size = cfg.data.samples_per_device
-    loader = DataLoader(dataset, batch_size, num_workers=num_workers)
+    loader = DataLoader(dataset, batch_size, num_workers=num_workers, process_index=rank(),
+                        process_count=world_size())
     dcfg, p = cfg.model.pts_bbox_head, num_proposals
 
     def forward(batch):
@@ -162,12 +185,17 @@ def evaluate(model, cfg, num_proposals: int, infos: str, num_workers: int, devic
                 if device.type == "cuda":  # the first batch holds cuDNN's autotuning workspaces
                     first_peak = torch.cuda.max_memory_allocated(device)
                     torch.cuda.reset_peak_memory_stats(device)
-            if n_frames % 100 < batch_size:
+            if n_frames % 100 < batch_size and rank() == 0:
                 print(f"{n_frames}/{len(dataset.infos)} frames, {n_frames / (time.perf_counter() - t0):.2f} fps")
     finally:
         loader.close()
     elapsed = time.perf_counter() - t0
     t_metrics = time.perf_counter()
+    gathered = gather_results(list(zip(tokens, pred_frames)))
+    if gathered is None:
+        return None
+    tokens = [t for t, _ in gathered]
+    pred_frames = [f for _, f in gathered]
 
     if out:
         with open(out, "wb") as f:
@@ -203,17 +231,19 @@ def evaluate(model, cfg, num_proposals: int, infos: str, num_workers: int, devic
 def main(argv: Optional[List[str]] = None) -> Dict:
     """Run the evaluation; returns :func:`evaluate`'s result, its set-up
     time counting the config, the model and the checkpoint too, and its
-    peak memory the whole run's."""
+    peak memory the whole run's (``None`` on a rank other than 0)."""
     import torch
 
     from ..models.detector import DeepInteraction
     from ..ops import cuda_lib
+    from ..parallel.mesh import destroy_distributed, init_distributed, is_distributed
     from ..train.checkpoint import load_weights
     from ..utils.synthetic import init_weights
 
     t_start = time.perf_counter()
     args = parse_args(argv)
-    device = torch.device(args.device)
+    own_group = not is_distributed()
+    device = init_distributed(args.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass --device cpu to evaluate on the CPU")
@@ -232,10 +262,17 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         init_weights(model, seed=cfg.seed)
 
     t_eval = time.perf_counter()
-    res = evaluate(model, cfg, p, args.infos, args.num_workers, device, tta=args.tta, out=args.out)
+    try:
+        res = evaluate(model, cfg, p, args.infos, args.num_workers, device, tta=args.tta, out=args.out)
+    finally:
+        if own_group:
+            destroy_distributed()
+    if res is None:
+        return None
     res["timing"]["setup_s"] += t_eval - t_start
     print(json.dumps(res["metrics"], indent=2, sort_keys=True))
-    print(json.dumps({"timing": res["timing"], "device": str(device), "config": args.config, "tta": args.tta}))
+    print(json.dumps({"timing": res["timing"], "device": str(device), "config": args.config, "tta": args.tta,
+                      "launches": launch_counts()}))
     return res
 
 

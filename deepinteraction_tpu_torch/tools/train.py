@@ -24,8 +24,19 @@ last line printed is a JSON summary with the port's kernel launches (the
 ``ops/subm_conv.py`` and ``ops/local_attention.py`` counters) of the train
 steps and of the evaluations.
 
-Single process, on one device: the JAX CLI's ``jax.distributed`` start and
-data-parallel mesh are not ported yet. The Hungarian matching has one
+Data parallel under ``torchrun`` (``deepinteraction_tpu_torch/tools/
+dist_train.sh``), one rank a card: the global batch is
+``data.samples_per_device`` x the rank count, each rank loading its shard
+of every epoch (``data/loader.py``) at the local batch, and each step is the
+global batch's step (``train/step.py``: global BN statistics, loss
+normalisers and gradient sums). Every rank draws its weights from
+``--seed`` and then takes rank 0's (after ``--load-from`` or
+``--resume-from``); the dropout generator is seeded from ``--seed`` and the
+rank. Only rank 0 writes: ``config.json``, the logs (the metrics are the
+global batch's), TensorBoard, the checkpoints and the profiler trace; the
+evaluations are sharded over the ranks and scored on rank 0. The summary
+line also counts the train steps' collectives and their all-reduced bytes
+(``parallel/mesh.py``). The Hungarian matching has one
 implementation (scipy on the host, ``ops/hungarian.py``), so there is no
 ``lap_impl`` override. ``cfg.data.gt_database`` is not passed to the
 dataset, as the JAX CLI does not pass it.
@@ -43,7 +54,7 @@ from typing import Dict, List, Optional
 # imported in main(), so the workers import neither
 from ..configs import apply_overrides
 from ..data import DataLoader, NuScenesDataset
-from .test import CONFIGS, evaluate
+from .test import CONFIGS, evaluate, launch_counts
 
 
 def parse_args(argv: Optional[List[str]] = None):
@@ -66,37 +77,31 @@ def parse_args(argv: Optional[List[str]] = None):
     return p.parse_args(argv)
 
 
-def launch_counts() -> Dict[str, int]:
-    """The port's kernel launch counters (each wrapper counts the launches
-    of its kernel in this process)."""
-    from ..ops import local_attention as la
-    from ..ops import subm_conv as smc
-
-    return {f.__name__: f.launches for f in (smc.subm_conv_gemm, smc.subm_conv_dgrad, smc.subm_conv_wgrad,
-                                             la.local_attn_fwd, la.local_attn_bwd)}
-
-
 def _since(start: Dict[str, int]) -> Dict[str, int]:
     return {k: v - start[k] for k, v in launch_counts().items()}
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:
-    """Train; returns the JSON summary it prints last: the steps taken, the
-    kernel launches of the train steps and of the evaluations, and on a card
-    the peak device memory of the train steps, over all of them and over
-    those after the run's first (which holds cuDNN's autotuning)."""
+    """Train; returns the JSON summary that rank 0 prints last: the steps
+    taken, the kernel launches of the train steps and of the evaluations,
+    the train steps' collectives and all-reduced bytes, and on a card the
+    peak device memory of the train steps, over all of them and over those
+    after the run's first (which holds cuDNN's autotuning)."""
     import torch
 
     from ..models.detector import DeepInteraction
     from ..ops import cuda_lib
     from ..ops.images import to_device
+    from ..parallel import mesh
     from ..train.checkpoint import load_params, restore_checkpoint, save_checkpoint
     from ..train.step import TrainStep
     from ..utils.synthetic import init_weights
 
     t_start = time.perf_counter()
     args = parse_args(argv)
-    device = torch.device(args.device)
+    own_group = not mesh.is_distributed()
+    device = mesh.init_distributed(args.device)
+    rank0, world = mesh.rank() == 0, mesh.world_size()
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass --device cpu to train on the CPU")
@@ -111,14 +116,16 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if overrides:
         cfg = apply_overrides(cfg, overrides)
     work_dir = args.work_dir or cfg.work_dir
-    os.makedirs(work_dir, exist_ok=True)
-    with open(os.path.join(work_dir, "config.json"), "w") as f:
-        json.dump({"config": args.config, "overrides": overrides}, f)
+    if rank0:
+        os.makedirs(work_dir, exist_ok=True)
+        with open(os.path.join(work_dir, "config.json"), "w") as f:
+            json.dump({"config": args.config, "overrides": overrides}, f)
 
     dataset = NuScenesDataset(cfg, args.infos, train=True, use_cbgs=cfg.data.use_cbgs, seed=args.seed)
-    batch_size = cfg.data.samples_per_device
-    loader = DataLoader(dataset, batch_size, num_workers=args.num_workers)
-    steps_per_epoch = max(len(dataset) // batch_size, 1)
+    batch_size = cfg.data.samples_per_device  # the rank's; the global batch is world x this
+    loader = DataLoader(dataset, batch_size, num_workers=args.num_workers, process_index=mesh.rank(),
+                        process_count=world)
+    steps_per_epoch = max(len(dataset) // (batch_size * world), 1)
     total_steps = steps_per_epoch * cfg.optim.total_epochs
 
     model = DeepInteraction(cfg.model, cfg.data.padded_img_shape)
@@ -130,11 +137,12 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     elif args.load_from:
         load_params(args.load_from, step)
         print(f"warm-started params from {args.load_from}")
-    generator = torch.Generator(device=device).manual_seed(args.seed)
+    mesh.replicate(model)
+    generator = torch.Generator(device=device).manual_seed(mesh.rank_seed(args.seed))
 
     log_path = os.path.join(work_dir, "train_log.jsonl")
     tb_writer = None
-    if args.tensorboard:
+    if args.tensorboard and rank0:
         try:
             from torch.utils.tensorboard import SummaryWriter
 
@@ -160,6 +168,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         return peak
 
     first_step = step.step_count
+    collectives = {"calls": 0, "bytes": 0}
     train_launches = dict.fromkeys(launch_counts(), 0)
     eval_launches = dict(train_launches)
     take_peak()
@@ -168,9 +177,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     try:
         for epoch in range(start_epoch, cfg.optim.total_epochs):
             counts = launch_counts()
+            calls, n_bytes = mesh.all_reduce.calls, mesh.all_reduce.bytes
             t_data = time.perf_counter()
             for it, host in enumerate(loader.epoch(epoch)):
-                if args.profile_steps and step.step_count == 5:
+                if args.profile_steps and rank0 and step.step_count == 5:
                     activities = [torch.profiler.ProfilerActivity.CPU]
                     if device.type == "cuda":
                         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -188,7 +198,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                 step_time = time.perf_counter() - t0
                 if step.step_count == first_step + 1:  # the first step holds cuDNN's autotuning workspaces
                     first_peak = take_peak()
-                if (it + 1) % cfg.optim.log_interval_steps == 0:
+                if (it + 1) % cfg.optim.log_interval_steps == 0 and rank0:
                     metrics = {k: v.item() for k, v in metrics.items()}
                     metrics.update(epoch=epoch, iter=it + 1, step=step.step_count, time=step_time,
                                    data_time=data_time)
@@ -203,7 +213,9 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                 t_data = time.perf_counter()
             for k, v in _since(counts).items():
                 train_launches[k] += v
-            if (epoch + 1) % cfg.optim.checkpoint_interval_epochs == 0:
+            collectives["calls"] += mesh.all_reduce.calls - calls
+            collectives["bytes"] += mesh.all_reduce.bytes - n_bytes
+            if (epoch + 1) % cfg.optim.checkpoint_interval_epochs == 0 and rank0:
                 save_checkpoint(os.path.join(work_dir, "ckpts"), step)
                 print(f"saved checkpoint at epoch {epoch}")
             if args.eval_infos:
@@ -214,26 +226,30 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                 for k, v in _since(counts).items():
                     eval_launches[k] += v
                 take_peak()  # the evaluation's
-                metrics = dict(res["metrics"], epoch=epoch)
-                print("eval:", json.dumps(metrics, sort_keys=True))
-                with open(os.path.join(work_dir, "eval_log.jsonl"), "a") as f:
-                    f.write(json.dumps(metrics) + "\n")
+                if res is not None:  # rank 0
+                    metrics = dict(res["metrics"], epoch=epoch)
+                    print("eval:", json.dumps(metrics, sort_keys=True))
+                    with open(os.path.join(work_dir, "eval_log.jsonl"), "a") as f:
+                        f.write(json.dumps(metrics) + "\n")
         if profiler is not None:  # the run ended inside the window
             stop_trace()
     finally:
         loader.close()
         if tb_writer is not None:
             tb_writer.close()
+        if own_group:
+            mesh.destroy_distributed()
 
-    summary = {"config": args.config, "device": str(device), "work_dir": work_dir,
+    summary = {"config": args.config, "device": str(device), "work_dir": work_dir, "ranks": world,
                "first_step": first_step, "last_step": step.step_count, "steps": step.step_count - first_step,
-               "launches": train_launches, "eval_launches": eval_launches,
+               "launches": train_launches, "eval_launches": eval_launches, "collectives": collectives,
                "seconds": time.perf_counter() - t_start}
     if device.type == "cuda":
         steady_peak = max(steady_peak, take_peak())
         summary["peak_memory_gib"] = max(first_peak, steady_peak) / 2**30
         summary["steady_peak_memory_gib"] = steady_peak / 2**30
-    print(json.dumps(summary))
+    if rank0:
+        print(json.dumps(summary))
     return summary
 
 

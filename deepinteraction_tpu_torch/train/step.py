@@ -19,6 +19,14 @@ step.py::make_train_step``).
   and the V2 decoder outside the warm-started head parts.
 - The Hungarian matching costs one host round trip per step (``ops/
   hungarian.py``), as in the reference.
+- Under a process group (``parallel/mesh.py``) each rank runs its local
+  batch; the BN statistics and the loss normalisers are the global batch's
+  (``models/layers.py``, ``targets/assign.py``), and between the backward
+  and the update one all-reduce sums the trainable parameters' gradients
+  and the metrics over the ranks, in one flat buffer in parameter order.
+  ``grad_norm`` and the clip are then the global gradient's, and every
+  rank applies the same update. So N ranks at batch B take the step that
+  one process takes at batch N x B.
 
 The step runs on the card unless the caller asks for the CPU
 (``device="cpu"``); without a card, ``device="cuda"`` raises.
@@ -32,6 +40,7 @@ import torch
 from torch import nn
 
 from ..configs import Config
+from ..parallel.mesh import all_reduce, is_distributed
 from ..targets.assign import Targets, build_targets, detection_loss
 from .schedules import cyclic_cosine
 
@@ -120,10 +129,24 @@ class TrainStep:
         losses = detection_loss(preds, batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"],
                                 m.pts_bbox_head, m.bbox_coder, m.assigner, bev_shape(cfg), targets)
         losses["loss_total"].backward()
-        sq = [p.grad.pow(2).sum() for p in self.params if p.grad is not None]
         metrics = {k: v.detach() for k, v in losses.items()}
+        if is_distributed():
+            metrics = self._all_reduce(metrics)
+        sq = [p.grad.pow(2).sum() for p in self.params if p.grad is not None]
         metrics["grad_norm"] = torch.sqrt(torch.stack(sq).sum()) if sq else torch.zeros((), device=self.device)
         return metrics, targets
+
+    @torch.no_grad()
+    def _all_reduce(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Sum the trainable gradients (into ``.grad``) and ``metrics`` over
+        the ranks in one collective; returns the summed metrics."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        flat = all_reduce(torch.cat([g.reshape(-1) for g in grads] + [torch.stack(list(metrics.values()))]))
+        off = 0
+        for p in self.params:
+            p.grad = flat[off:off + p.numel()].view_as(p)
+            off += p.numel()
+        return dict(zip(metrics, flat[off:]))
 
     @torch.no_grad()
     def update(self, grad_norm: torch.Tensor) -> None:

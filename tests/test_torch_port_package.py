@@ -47,7 +47,9 @@ def test_port_imports_without_jax():
     for new in ("ops.nms", "ops.jpeg", "ops.images", "eval.tta", "eval.nuscenes_metrics", "eval.results",
                 "data.pipeline", "data.loader", "data.dataset", "data.nuscenes_converter", "data.splits",
                 "utils.synthetic_nuscenes", "utils.torch_convert", "tools.test", "tools.convert_torch_ckpt",
-                "data.gt_database", "data.anno_2d", "tools.train", "tools.benchmark", "tools.create_data"):
+                "data.gt_database", "data.anno_2d", "tools.train", "tools.benchmark", "tools.create_data",
+                "parallel.mesh", "parallel.input", "utils.fuse_bn", "tools.ensemble", "tools.misc_tools",
+                "tools.analyze_logs"):
         assert f"deepinteraction_tpu_torch.{new}" in mods, new
     code = (
         "import runpy, sys\n"
