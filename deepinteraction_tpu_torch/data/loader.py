@@ -80,11 +80,7 @@ class DataLoader:
         shuffle = train if shuffle is None else shuffle
         idx = self.dataset.epoch_indices(epoch, shuffle)
         bs = self.batch_size
-        if self.process_count > 1:
-            if train:
-                idx = process_shard_indices(idx, bs, self.process_index, self.process_count)
-            else:
-                idx = idx[self.process_index :: self.process_count]
+        idx = process_shard_indices(idx, bs, self.process_index, self.process_count, drop_last=train)
         if train:
             batches = [(list(idx[i * bs : (i + 1) * bs]), 0) for i in range(len(idx) // bs)]
         else:

@@ -15,13 +15,17 @@ in place at torch momentum ``m`` (``running = (1 - m) * running + m * stat``).
 - ``MaskedBatchNorm`` is the JAX ``MaskedBatchNorm``: statistics over the
   valid rows, two-pass variance, and an **unbiased** running variance.
 
-Train-mode statistics are taken from sums over a count. Under a process
-group (``parallel/mesh.py``) they span the global batch, as JAX's
-data-parallel program takes them: the local sums and count are all-reduced
-in one collective (two for the masked form's two passes), which carries the
-gradient, and the rest of the arithmetic is the one-process arithmetic, so
-a group of one computes the same bits as no group. In eval there is no
-collective.
+Train-mode statistics are taken from sums divided by a count on the
+device. Under a process group (``parallel/mesh.py``) they span the global
+batch, as JAX's data-parallel program takes them: the local sums and count
+are all-reduced in one collective (two for the masked form's two passes),
+which carries the gradient. The division is the same with and without a
+group, so a group of one computes the same bits as no group (a mean in one
+and sums over a count in the other differ by a rounding, enough to flip a
+near-tie among the decoder's top-k proposals). Only a group concatenates
+and slices the sums: with their backward that is ~1 400 more kernel
+launches in a ``fusion_base`` train step (``profile_train`` on an H100).
+In eval there is no collective.
 
 Dropout masks are drawn from the ``torch.Generator`` the caller passes.
 """
@@ -35,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dropout import apply_dropout
-from ..parallel.mesh import all_reduce
+from ..parallel.mesh import all_reduce, is_distributed
 
 
 class Conv2d(nn.Conv2d):
@@ -84,9 +88,12 @@ class BatchNorm(nn.Module):
             return self._normalize(x, self.running_mean, self.running_var)
         dims = tuple(range(x.dim() - 1))
         c = x.shape[-1]
-        s = all_reduce(torch.cat([x.sum(dims), (x * x).sum(dims), x.new_full((1,), x.numel() // c)]), grad=True)
-        mean = s[:c] / s[-1]
-        var = torch.clamp(s[c:2 * c] / s[-1] - mean * mean, min=0.0)
+        s1, s2, n = x.sum(dims), (x * x).sum(dims), x.new_full((), x.numel() // c)
+        if is_distributed():
+            s = all_reduce(torch.cat([s1, s2, n.reshape(1)]))
+            s1, s2, n = s[:c], s[c:2 * c], s[-1]
+        mean = s1 / n
+        var = torch.clamp(s2 / n - mean * mean, min=0.0)
         self._update(mean, var)
         return self._normalize(x, mean, var)
 
@@ -100,10 +107,13 @@ class MaskedBatchNorm(BatchNorm):
         if train:
             dims = tuple(range(x.dim() - 1))
             m = mask[..., None].to(x.dtype)
-            s = all_reduce(torch.cat([(x * m).sum(dims), m.sum().reshape(1)]), grad=True)
-            cnt = torch.clamp(s[-1], min=1.0)
-            mean = s[:-1] / cnt
-            var = all_reduce((m * (x - mean) ** 2).sum(dims), grad=True) / cnt
+            s1, cnt = (x * m).sum(dims), m.sum()
+            if is_distributed():
+                s = all_reduce(torch.cat([s1, cnt.reshape(1)]))
+                s1, cnt = s[:-1], s[-1]
+            cnt = torch.clamp(cnt, min=1.0)
+            mean = s1 / cnt
+            var = all_reduce((m * (x - mean) ** 2).sum(dims)) / cnt
             self._update(mean, var * cnt / torch.clamp(cnt - 1.0, min=1.0))
             y = self._normalize(x, mean, var)
         else:

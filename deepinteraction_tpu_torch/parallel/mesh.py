@@ -117,18 +117,12 @@ class _AllReduceSum(torch.autograd.Function):
         return g
 
 
-def all_reduce(t: torch.Tensor, grad: bool = False) -> torch.Tensor:
-    """The sum of ``t`` over the ranks (a new tensor; ``t`` itself without
-    a group). ``grad=True`` carries gradients: the backward all-reduces the
-    gradient too."""
+def all_reduce(t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over the ranks (a new tensor whose backward sums the
+    gradient over the ranks too); ``t`` itself without a group."""
     if not is_distributed():
         return t
-    if grad:
-        return _AllReduceSum.apply(t)
-    out = t.detach().contiguous().clone()
-    _count(out)
-    dist.all_reduce(out)
-    return out
+    return _AllReduceSum.apply(t)
 
 
 all_reduce.calls = 0

@@ -3,15 +3,16 @@
 ``tools/misc/fuse_conv_bn.py``).
 
 The port names its modules after the Flax tree, so JAX's rule carries over:
-wherever a module holds a sibling ``conv`` (a ``Conv2d``, ``ConvTranspose2d``
-or ``Linear``: a Flax ``kernel``) and ``bn`` (a ``BatchNorm``), the BN's
-affine and running statistics are folded into the conv's weight and the BN
-is neutralised: ``weight = 1``, ``running_mean = 0``, ``running_var = 1 -
-eps`` (so ``rsqrt(var + eps) == 1``), and ``bias`` the folded bias, since
-the conv may have none (a conv followed by a norm is bias-free). That is
+wherever a module holds a sibling ``conv`` (a ``Conv2d``: a Flax
+``kernel``) and ``bn`` (a ``BatchNorm``), the BN's affine and running
+statistics are folded into the conv's weight and the BN is neutralised:
+``weight = 1``, ``running_mean = 0``, ``running_var = 1 - eps`` (so
+``rsqrt(var + eps) == 1``), and ``bias`` the folded bias, since the conv
+may have none (a conv followed by a norm is bias-free). That is
 the ``ConvBNReLU`` pairs: the MMRI projections and integrations and the
-decoder's head convs. The factor scales the output channels, torch's dim 0
-of every weight layout (Flax's last dim of ``kernel``).
+decoder's head convs. The factor scales the output channels, dim 0 of
+the ``Conv2d`` weight ``[Cout, Cin, kh, kw]`` (Flax's last dim of
+``kernel``).
 """
 
 from __future__ import annotations
@@ -21,8 +22,6 @@ from torch import nn
 
 from ..models.layers import BatchNorm
 
-_CONVS = (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)
-
 
 @torch.no_grad()
 def fuse_conv_bn(model: nn.Module) -> int:
@@ -31,7 +30,7 @@ def fuse_conv_bn(model: nn.Module) -> int:
     count = 0
     for mod in model.modules():
         conv, bn = getattr(mod, "conv", None), getattr(mod, "bn", None)
-        if not (isinstance(conv, _CONVS) and isinstance(bn, BatchNorm)):
+        if not (isinstance(conv, nn.Conv2d) and isinstance(bn, BatchNorm)):
             continue
         factor = bn.weight / torch.sqrt(bn.running_var + bn.eps)
         conv_bias = conv.bias if conv.bias is not None else torch.zeros_like(bn.running_mean)
