@@ -183,6 +183,27 @@ prints its kernel launches (the process's counters) in its last line:
     (K1 21 a sample, K2 6 a batch, and 6 backward a train step), and its
     numbers beside phases 7 and 13 (logged: the host moves them 20-40 %).
 
+The eighth path is data parallelism under ``torchrun`` and the eval-side
+tools (23: ``tools.train`` and ``tools.test fusion_base`` under ``python -m
+torch.distributed.run --standalone --nproc-per-node 1``; 24: ``misc_tools
+fuse_conv_bn``, the eval CLI on the folded checkpoint, ``tools.ensemble``).
+The ninth is the rest of the host side:
+
+25. the native sweep reader (``data/native``, built with g++ beside the
+    kernels) against its float32 numpy version on every sample of phase
+    19's val tree, within NATIVE_TOL, ms a sample for each; the six image
+    transforms of ``data/extra_transforms.py`` on one sample's six
+    1600x900 views decoded by nvJPEG, on the card against the CPU within
+    TRANSFORM_TOL levels, ms a sample on the card;
+26. the tools, each as ``python -m deepinteraction_tpu_torch.tools.<cli>``
+    in a process of its own: ``get_flops tiny`` on the CPU and on the card
+    (equal parameters and FLOPs), ``get_flops`` on the card for
+    ``fusion_base`` (eval and ``--train``), ``fusion_plusplus`` and
+    ``lidar_only --train``; ``trace_model fusion_base --iters 2`` and
+    ``analyze_trace`` over its trace: K1 and K2 launches a run at phase 7's
+    counts (21 and 6), device ms a run, the busy share, the top categories
+    and scopes.
+
 Record and replay of ReLU masks, sort orders, dropout masks, sampling
 positions, boxes and L1 signs span the whole forward and backward (:func:`step_grads` wraps
 ``TrainStep.backward``), so the calls that the backward's recompute of the
@@ -231,7 +252,9 @@ from deepinteraction_tpu_torch.data.nuscenes_converter import create_nuscenes_in
 from deepinteraction_tpu_torch.inference import get_bboxes
 from deepinteraction_tpu_torch.models import mmri_encoder, sparse_encoder
 from deepinteraction_tpu_torch.models.detector import DeepInteraction
-from deepinteraction_tpu_torch.ops import cuda_lib, jpeg
+from deepinteraction_tpu_torch.data import extra_transforms as xt
+from deepinteraction_tpu_torch.data import native, pipeline
+from deepinteraction_tpu_torch.ops import cuda_lib, flops, jpeg
 from deepinteraction_tpu_torch.ops.images import prepare_images, to_device
 from deepinteraction_tpu_torch.ops.nms import nms_keep
 from deepinteraction_tpu_torch.ops import local_attention as la
@@ -321,6 +344,16 @@ JPEG_BOUNDS = {"jpeg_96x64": (4, 0.1), "jpeg_97x65": (4, 0.1), "jpeg_97x65_444":
                "jpeg_flat_97x65": (0, 0.0)}
 JPEG_PSNR_DB = 40.0
 IMAGE_STAGE_TOL = 1e-5
+# Phase 25: the native sweep reader (double-precision transform, one cast)
+# against its float32 numpy version, in metres: a float32 ulp at 50 m is
+# 3.8e-6, and the two differ by up to two; the image transforms on the card
+# against the CPU, in 0-255 levels (their only difference is the order of
+# float32 operations)
+NATIVE_TOL = 1e-5
+TRANSFORM_TOL = 1e-3
+# Phase 26: the launches a traced fusion_base eval run must show (phase 7's
+# counts a frame)
+TRACE_LAUNCHES = {"subm_conv_gemm": 21, "local_attn_fwd": 6}
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(REPO, "deepinteraction_tpu_torch", "fixtures")
 SMOKE_DIR = os.path.join(REPO, "work_dirs", "chip_smoke")  # listed in .gitignore; removed after the run
@@ -383,14 +416,14 @@ def k1_bound(kind: str, nbr, valid_out, kin: int, cin: int, cout: int, units: st
     2 * cin * cout operations per hit (i, d) of this table, at the peak of
     ``units`` (default: the kernel's own, ``K1_UNITS``)."""
     ko, taps = nbr.shape
-    hits = ((nbr < kin) & valid_out[:, None]).sum().item()
+    hits = flops.k1_hits(nbr, kin, valid_out)
     w = taps * cin * cout
     n_bytes = {
         "fwd": kin * cin + ko * taps + w + ko * cout + ko / 4,  # feat, nbr, W, out, valid
         "dgrad": ko * cout + kin * taps + w + kin * cin + kin / 4,  # dy, inv, W^T, dfeat, valid
         "wgrad": kin * cin + ko * taps + ko * cout + w,  # feat, nbr, dy, dW
     }[kind] * 4
-    return bound(n_bytes, 2.0 * hits * cin * cout, units or K1_UNITS[kind])
+    return bound(n_bytes, flops.k1_ops(hits, cin, cout), units or K1_UNITS[kind])
 
 
 def timing(kern, plain, bd: dict, launches: int) -> dict:
@@ -690,7 +723,7 @@ def check_k2(dev, gen):
         b, h, w, c = shape
         # q, k, v read and out written once; per pixel 81 taps x (dot + axpy)
         t = timing(lambda: la.local_attn_fwd(q, k, v, 9), lambda: la.local_attention(q, k, v, 9),
-                   bound(4 * 4 * b * h * w * c, b * h * w * 4 * 81 * c, "tf32"), n)
+                   bound(4 * 4 * b * h * w * c, flops.k2_ops(shape, 9), "tf32"), n)
         log(f"K2 local_attn_fwd {list(shape)} k=9: max_abs_err={err:.3e} max_rel_err={rel:.3e} {timing_text(t)}")
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         rec["shapes"].append(dict(t, shape=f"{list(shape)} k=9"))
@@ -1013,7 +1046,7 @@ def check_k2_backward(dev, gen):
         # (q.k, dO.v, dS k, dS q, P dO), 2 C operations each, on the TF32
         # tensor cores (split TF32)
         t = timing(lambda: la.local_attn_bwd(q, k, v, dout, 9), lambda: la.local_attention_bwd(q, k, v, dout, 9),
-                   bound(7 * 4 * b * h * w * c, b * h * w * 10 * 81 * c, "tf32"), n)
+                   bound(7 * 4 * b * h * w * c, flops.k2_ops(shape, 9, backward=True), "tf32"), n)
         log(f"K2 local_attn_bwd {list(shape)} k=9: {' '.join(msg)} {timing_text(t)}")
         rec["shapes"].append(dict(t, shape=f"{list(shape)} k=9"))
         per_step += t["launch_ms"]
@@ -1982,10 +2015,130 @@ def run_dist(paths: dict, fusion_run: dict, eval_launches: dict) -> dict:
             "fusion_base eval CLI under torchrun (1 rank, NCCL), 9 frames, B=2": ev["launches"]}
 
 
+def run_host_side(dev, val_pkl: str) -> None:
+    """Phase 25: the native sweep reader against its plain version on
+    every sample of phase 19's val tree, and the image transforms on one
+    sample's six views, card against CPU."""
+    t_start = time.perf_counter()
+    with open(val_pkl, "rb") as f:
+        infos = pickle.load(f)["infos"]
+    n_sweeps = fusion_base_config().data.num_sweeps
+    worst, ms, rows = 0.0, {"native": [], "plain": []}, []
+    for info in infos:
+        got = {}
+        for kind, fn in (("native", pipeline.load_sweep_points), ("plain", pipeline.load_sweep_points_plain)):
+            t0 = time.perf_counter()
+            got[kind] = fn(info, n_sweeps, None)
+            ms[kind].append((time.perf_counter() - t0) * 1e3)
+        assert got["native"].shape == got["plain"].shape, (got["native"].shape, got["plain"].shape)
+        worst = max(worst, float(np.abs(got["native"] - got["plain"]).max()))
+        rows.append(len(got["native"]))
+    log(f"native sweep reader ({native.library_path()}) vs float32 numpy on {len(infos)} val samples "
+        f"({min(rows)}-{max(rows)} points, {n_sweeps} sweeps at most): equal counts, max abs diff {worst:.3e} m "
+        f"(tolerance {NATIVE_TOL}); ms a sample, median (first): native {statistics.median(ms['native']):.3f} "
+        f"({ms['native'][0]:.3f}), plain {statistics.median(ms['plain']):.3f} ({ms['plain'][0]:.3f})")
+    assert worst <= NATIVE_TOL, worst
+
+    cams = list(infos[0]["cams"].values())
+    pixels = jpeg.decode([np.fromfile(c["data_path"], np.uint8) for c in cams], dev)
+    views = torch.stack(pixels).float()  # [6, 900, 1600, 3] on the card
+    l2i = np.stack([np.eye(4, dtype=np.float32)] * len(cams))
+    boxes = np.array([[100.0, 50.0, 700.0, 400.0], [-20.0, 600.0, 1700.0, 950.0]], np.float32)
+
+    def transforms(x):
+        """The six transforms on [V, H, W, 3] ``x``; every output in a list
+        (images and host arrays)."""
+        out = [xt.photometric_distortion(x, np.random.default_rng(seed)) for seed in (1, 5, 11)]
+        scale, _ = xt.random_scale([(1600, 900), (1333, 800)], np.random.default_rng(0), "range")
+        out.append(xt.rescale_keep_ratio(x[0], scale)[0])
+        imgs, mats, factor, bx = xt.resize_multiview(list(x), l2i, (1333, 800), True, boxes.copy())
+        out += imgs + [mats, factor, bx]
+        imgs, mats, _ = xt.random_resize(list(x), l2i, np.random.default_rng(3))
+        out += imgs + [mats]
+        out.append(xt.pad_waymo_view(x[0]))
+        return out
+
+    on_card = transforms(views)
+    on_cpu = transforms(views.cpu())
+    errs = []
+    for a, b in zip(on_card, on_cpu):
+        if isinstance(a, torch.Tensor):
+            assert a.device.type == "cuda" and a.shape == b.shape, (a.device, a.shape, b.shape)
+            errs.append((a.cpu() - b).abs().max().item())
+        else:
+            assert np.array_equal(a, b)
+    times = []
+    for _ in range(WARMUP + REPS):
+        t0 = time.perf_counter()
+        transforms(views)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"image transforms (3 photometric draws, random_scale + rescale_keep_ratio, resize_multiview, "
+        f"random_resize, pad_waymo_view) on a sample's {len(cams)} views of {tuple(views.shape[1:3])} decoded by "
+        f"nvJPEG: card vs CPU max abs {max(errs):.3e} levels over {len(errs)} images (tolerance {TRANSFORM_TOL}); "
+        f"{statistics.median(times[WARMUP:]):.3f} ms a sample on the card (host clock to a synchronize, median of "
+        f"{REPS})")
+    assert max(errs) <= TRANSFORM_TOL, errs
+    log(f"phase 25 took {time.perf_counter() - t_start:.1f} s")
+
+
+def run_tools() -> None:
+    """Phase 26: get_flops, trace_model and analyze_trace, each in a process
+    of its own (this process's cached device memory released first)."""
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def flops_of(*args):
+        rec, wall = run_cli("get_flops", *args)
+        log(f"get_flops {' '.join(args)} ({wall:.1f} s wall, {rec['device']}): params {rec['params']} "
+            f"({rec['params'] / 1e6:.2f} M), {rec['flops'] / 1e9:.3f} GFLOPs per {rec['per']}; by operator "
+            + json.dumps({k: round(v / 1e9, 3) for k, v in rec["flops_by_op"].items()}))
+        return rec
+
+    # the CPU count, and the two train steps one after the other, beside the
+    # card's eval counts: two processes on the card at once, each up to ~36
+    # GiB in its first iteration (cuDNN's autotuning)
+    with ThreadPoolExecutor(2) as pool:
+        cpu_tiny = pool.submit(flops_of, "tiny", "--device", "cpu")
+        trains = pool.submit(lambda: [flops_of(name, "--train") for name in ("fusion_base", "lidar_only")])
+        card_tiny = flops_of("tiny")
+        for name in ("fusion_base", "fusion_plusplus"):
+            flops_of(name)
+        cpu_tiny = cpu_tiny.result()
+        trains.result()
+    same = {k: cpu_tiny[k] == card_tiny[k] for k in ("params", "flops", "flops_by_op")}
+    log(f"get_flops tiny on the CPU and on the card: equal {same}")
+    assert all(same.values()), (cpu_tiny, card_tiny)
+
+    outdir = os.path.join(SMOKE_DIR, "trace_fusion_base")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "deepinteraction_tpu_torch.tools.trace_model", "fusion_base",
+                           "--iters", "2", "--outdir", outdir], capture_output=True, text=True, timeout=600,
+                          cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    lines = proc.stdout.strip().splitlines()
+    log(f"trace_model fusion_base --iters 2 ({time.perf_counter() - t0:.1f} s wall): " + "; ".join(lines))
+    assert lines[-2] == f"trace written to {outdir}" and lines[-1].startswith("steady-state:"), lines
+    res, wall = run_cli("analyze_trace", outdir, "--ops", "--top", "10")
+    cats = list(res["by_category_ms_per_run"].items())[:5]
+    scopes = list(res["by_scope_ms_per_run"].items())[:8]
+    log(f"analyze_trace ({wall:.1f} s wall): {res['lanes']}, {res['runs']} runs: {res['ms_per_run']:.3f} ms of "
+        f"device time a run in a {res['window_ms_per_run']:.3f} ms window (busy {100 * res['busy_share']:.1f} %); "
+        "top categories " + ", ".join(f"{k} {v:.3f}" for k, v in cats) + "; scopes "
+        + ", ".join(f"{k} {v:.3f}" for k, v in scopes) + f"; port launches a run {res['port_launches_per_run']}; "
+        "top kernels " + "; ".join(f"{n[:60]} {ms:.3f} ms x{c:g}" for n, ms, c in res["top_ops"][:5]))
+    assert res["lanes"] == "device kernels" and res["runs"] == 2, res["lanes"]
+    got = {k: res["port_launches_per_run"][k] for k in TRACE_LAUNCHES}
+    assert got == TRACE_LAUNCHES, got
+    log(f"phase 26 took {time.perf_counter() - t_start:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -1995,12 +2148,14 @@ def main() -> int:
     log(nvcc.stdout.strip().splitlines()[-1])
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:  # the nvJPEG binding builds beside the kernels
+    with ThreadPoolExecutor(2) as pool:  # the nvJPEG binding and the sweep reader build beside the kernels
         jpeg_lib = pool.submit(jpeg.build)
+        points_lib = pool.submit(native.build)
         lib = cuda_lib.build()
-        log(f"built {lib} and {jpeg_lib.result()} in {time.perf_counter() - t0:.1f} s")
+        log(f"built {lib}, {jpeg_lib.result()} and {points_lib.result()} in {time.perf_counter() - t0:.1f} s")
     cuda_lib.library()
     jpeg.library()
+    native.library()
 
     cuda_lib.fp32_numerics()
 
@@ -2017,6 +2172,8 @@ def main() -> int:
                     "fusion_keys": fusion_t["metric_keys"]}
         fusion_run, cli_paths = run_train_cli(dev, paths["ckpt"], measured)
         cli_paths.update(run_dist(paths, fusion_run, cli_launches))
+        run_host_side(dev, paths["val"])
+        run_tools()
     finally:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
 
@@ -2058,6 +2215,7 @@ def main() -> int:
          "launches": fusion_launches["local_attn_bwd"], "path": fusion_path,
          "launches_by_path": by_path("local_attn_bwd"), "library_ms": None},
     ]
+    log(f"chip_smoke.py took {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                             "count": torch.cuda.device_count()}}), flush=True)

@@ -19,7 +19,14 @@ from .base import (
     VoxelizationConfig,
     apply_overrides,
 )
-from .fusion_base import fusion_base_config, lidar_only_config, tiny_config, tiny_lidar_config, tiny_pp_config
+from .fusion_base import (
+    dryrun_config,
+    fusion_base_config,
+    lidar_only_config,
+    tiny_config,
+    tiny_lidar_config,
+    tiny_pp_config,
+)
 from .fusion_plusplus import fusion_plusplus_config
 
 __all__ = [
@@ -38,6 +45,7 @@ __all__ = [
     "SparseEncoderConfig",
     "VoxelizationConfig",
     "apply_overrides",
+    "dryrun_config",
     "fusion_base_config",
     "fusion_plusplus_config",
     "lidar_only_config",

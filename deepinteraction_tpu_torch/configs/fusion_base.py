@@ -232,6 +232,37 @@ def tiny_lidar_config() -> Config:
     return dataclasses.replace(cfg, model=model)
 
 
+def dryrun_config() -> Config:
+    """Smallest config that still exercises every train-step component:
+    the JAX package's data-parallel dry-run config, copied field for field.
+    Against ``tiny_config``: 1 MMPI block instead of 4, single-block SECOND
+    stages, and 4x smaller point/voxel capacities. Topology (4 sparse
+    stages, MMRI, heads, losses) intact.
+    """
+    cfg = tiny_config()
+    model = dataclasses.replace(
+        cfg.model,
+        pts_voxel_layer=dataclasses.replace(
+            cfg.model.pts_voxel_layer, max_voxels=(512, 512)
+        ),
+        pts_pillar_layer=dataclasses.replace(
+            cfg.model.pts_pillar_layer, max_voxels=(128, 128)
+        ),
+        pts_middle_encoder=dataclasses.replace(
+            cfg.model.pts_middle_encoder,
+            stage_capacities=(512, 384, 256, 128),
+        ),
+        pts_backbone=dataclasses.replace(
+            cfg.model.pts_backbone, layer_nums=(1, 1)
+        ),
+        pts_bbox_head=dataclasses.replace(
+            cfg.model.pts_bbox_head, num_mmpi=1
+        ),
+    )
+    data = dataclasses.replace(cfg.data, max_points=1024)
+    return dataclasses.replace(cfg, model=model, data=data)
+
+
 def tiny_pp_config() -> Config:
     """Tiny DeepInteraction++ topology (FusionTransformer neck, polar I2P,
     V2 MMPI blocks) for tests and dry-runs."""

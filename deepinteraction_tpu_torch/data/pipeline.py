@@ -13,9 +13,12 @@ JPEG **bytes** (``jpeg``) and keeps ``lidar2img`` as the calibration gives
 it, with the train flip in ``img_flip``; ``ops/images.py::process_images``
 decodes, resizes, normalises and pads the images on the batch's device and
 folds the resize and the flip into ``lidar2img`` (``DataLoader.to_device``
-runs it). Sweeps load through the numpy path (the JAX package's native C++
-reader is not ported). GT paste (``sampler``, ``data/gt_database.py``) runs
-before the global augmentation while the Fading hook keeps it active.
+runs it). Sweeps load through the native reader (``data/native``, the
+JAX package's default path: each sweep moved into the key frame in double
+precision), so the points are JAX's bit for bit;
+``load_sweep_points_plain`` is the float32 numpy version, for tests. GT
+paste (``sampler``, ``data/gt_database.py``) runs before the global
+augmentation while the Fading hook keeps it active.
 
 Deliberate deviations from the reference, kept from the JAX package:
 
@@ -36,6 +39,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..configs import Config
+from . import native
 
 
 def load_points(path: str, load_dim: int = 5) -> np.ndarray:
@@ -51,6 +55,9 @@ def _sweep_choice(num_available: int, num_sweeps: int, rng):
     return np.arange(num_sweeps)
 
 
+_NO_RANGE = (-1e9, -1e9, -1e9, 1e9, 1e9, 1e9)
+
+
 def load_sweep_points(
     info: dict,
     num_sweeps: int,
@@ -60,7 +67,31 @@ def load_sweep_points(
     """Key points + transformed sweeps with relative timestamps
     (mmdet3d LoadPointsFromMultiSweeps semantics: key ts column zeroed,
     sweep ts = (key_ts - sweep_ts)/1e6; random sweep choice in train,
-    first-n in eval), in numpy."""
+    first-n in eval), through the native reader: each sweep moved into the
+    key frame in double precision, as the JAX package's default path."""
+    sweeps = info["sweeps"]
+    chosen = [sweeps[int(i)] for i in _sweep_choice(len(sweeps), num_sweeps, rng)]
+    ts_key = info["timestamp"] / 1e6
+    paths = [info["lidar_path"]] + [s["data_path"] for s in chosen]
+    rots = np.stack([np.eye(3)] + [np.asarray(s["sensor2lidar_rotation"]) for s in chosen])
+    trans = np.stack([np.zeros(3)] + [np.asarray(s["sensor2lidar_translation"]) for s in chosen])
+    ts = np.asarray([0.0] + [ts_key - s["timestamp"] / 1e6 for s in chosen])
+    # JAX's cap, 400 000 rows a cloud; the range box keeps every point, so
+    # a buffer of the rows on disk holds them all and leaves no padding
+    cap = native.MAX_CLOUD_ROWS * (1 + len(chosen))
+    rows = sum(min(os.path.getsize(p) // (4 * load_dim), native.MAX_CLOUD_ROWS) for p in paths)
+    pts, _, n = native.assemble_points(paths, rots, trans, ts, _NO_RANGE, min(cap, rows), load_dim)
+    return pts[:n]
+
+
+def load_sweep_points_plain(
+    info: dict,
+    num_sweeps: int,
+    rng: Optional[np.random.Generator],
+    load_dim: int = 5,
+) -> np.ndarray:
+    """Plain version of :func:`load_sweep_points`: the same sweeps in
+    float32 numpy (``pts @ R.T + t``), within an ulp of the native reader."""
     sweeps = info["sweeps"]
     choices = _sweep_choice(len(sweeps), num_sweeps, rng)
     ts_key = info["timestamp"] / 1e6

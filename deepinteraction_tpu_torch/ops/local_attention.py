@@ -29,16 +29,23 @@ the forward; the JAX package re-differentiates its XLA oracle
 and v for it, so a train step through K2 runs both kernels. Against the
 plain version it agrees within 1e-4 of each output's scale, and it gives the
 same bits on every call (no atomics).
+
+While ``ops/flops.py::counting_kernels`` is active, both wrappers run
+through custom operators that ``FlopCounterMode`` counts at 4 k^2 C (forward)
+and 10 k^2 C (backward) a pixel (:func:`counted_ops`), on either device.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
 
-from . import cuda_lib
+from . import cuda_lib, flops
 
 # largest window the kernel takes: its k*k logits live in registers
 MAX_KERNEL = 9
@@ -119,6 +126,8 @@ class _LocalAttnFwd(torch.autograd.Function):
     def forward(ctx, q, k, v, kernel):
         ctx.kernel = kernel
         ctx.save_for_backward(q, k, v)
+        if flops.counting:
+            return counted_ops().fwd(q, k, v, kernel)
         return _launch(q, k, v, kernel)
 
     @staticmethod
@@ -147,6 +156,8 @@ def local_attn_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kernel: int
 ) -> torch.Tensor:
     """K2 wrapper. q, k, v [B, H, W, C] f32 (NHWC) -> [B, H, W, C]."""
+    if flops.counting:  # either device, through the counted operators
+        return _LocalAttnFwd.apply(q, k, v, kernel)
     if q.device.type == "cpu":
         return local_attention(q, k, v, kernel)
     return _LocalAttnFwd.apply(*_check("local_attn_fwd", (q, k, v), kernel), kernel)
@@ -157,9 +168,56 @@ def local_attn_bwd(
 ):
     """K2 backward wrapper. q, k, v and dO [B, H, W, C] f32 (NHWC) ->
     (dq, dk, dv)."""
+    if flops.counting:
+        return tuple(counted_ops().bwd(q, k, v, dout, kernel))
+    return _bwd(q, k, v, dout, kernel)
+
+
+def _fwd(q, k, v, kernel):
+    if q.device.type == "cpu":
+        return local_attention(q, k, v, kernel)
+    return _launch(*_check("local_attn_fwd", (q, k, v), kernel), kernel)
+
+
+def _bwd(q, k, v, dout, kernel):
     if q.device.type == "cpu":
         return local_attention_bwd(q, k, v, dout, kernel)
     return _launch_bwd(*_check("local_attn_bwd", (q, k, v, dout), kernel), kernel)
+
+
+@functools.lru_cache(maxsize=None)
+def counted_ops() -> SimpleNamespace:
+    """K2 and its backward as custom operators (``di_port::local_attn_*``),
+    each with its operation count registered for ``FlopCounterMode``;
+    registered on first use. The wrappers call them only while
+    ``flops.counting`` is set."""
+    from torch.library import custom_op
+    from torch.utils.flop_counter import register_flop_formula
+
+    @custom_op("di_port::local_attn_fwd", mutates_args=())
+    def fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kernel: int) -> torch.Tensor:
+        return _fwd(q, k, v, kernel)
+
+    @custom_op("di_port::local_attn_bwd", mutates_args=())
+    def bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+            kernel: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        if q.device.type == "cpu":
+            # the plain backward is autograd, which does not run where an
+            # operator's body runs (below the autograd dispatch key); a new
+            # thread starts from the default dispatch state
+            with ThreadPoolExecutor(1) as pool:
+                return tuple(pool.submit(local_attention_bwd, q, k, v, dout, kernel).result())
+        return tuple(_bwd(q, k, v, dout, kernel))
+
+    @register_flop_formula(torch.ops.di_port.local_attn_fwd, get_raw=True)
+    def _fwd_ops(q, k, v, kernel, out_val=None):
+        return flops.k2_ops(q.shape, kernel)
+
+    @register_flop_formula(torch.ops.di_port.local_attn_bwd, get_raw=True)
+    def _bwd_ops(q, k, v, dout, kernel, out_val=None):
+        return flops.k2_ops(q.shape, kernel, backward=True)
+
+    return SimpleNamespace(fwd=fwd, bwd=bwd)
 
 
 local_attn_fwd.launches = 0

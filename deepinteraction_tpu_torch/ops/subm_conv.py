@@ -29,14 +29,19 @@ per fp32 product) and keep fp32 accuracy, so they agree with the plain
 versions to fp32 summation-order error (tolerance 1e-4 relative to the
 output's scale). d/dW adds its per-block partials in a fixed order: two
 calls give the same bits. Each wrapper counts its launches in
-``.launches``.
+``.launches``. While ``ops/flops.py::counting_kernels`` is active, each
+wrapper runs through a custom operator that ``FlopCounterMode`` counts at
+2 * Cin * Cout a hit of its table (:func:`counted_ops`).
 """
 
 from __future__ import annotations
 
+import functools
+from types import SimpleNamespace
+
 import torch
 
-from . import cuda_lib
+from . import cuda_lib, flops
 
 # rows of the table one wgrad block walks (32 tiles of the kernel's 32 rows);
 # it sets the number of partials the second pass sums
@@ -108,6 +113,12 @@ def subm_conv_dgrad(dy: torch.Tensor, inv: torch.Tensor, weights: torch.Tensor) 
     """d/dfeat of K1: the forward kernel over the inverse table with
     ``W[d]^T``. dy [Ko, Cout] (invalid rows zeroed); inv [K, D] int32 (Ko =
     miss); weights [D, Cin, Cout] -> [K, Cin]."""
+    if flops.counting:
+        return counted_ops().dgrad(dy, inv, weights)
+    return _dgrad(dy, inv, weights)
+
+
+def _dgrad(dy, inv, weights):
     wt = weights.transpose(1, 2).contiguous()
     every = torch.ones(inv.shape[0], dtype=torch.bool, device=dy.device)
     if dy.device.type == "cpu":
@@ -121,6 +132,12 @@ def subm_conv_dgrad(dy: torch.Tensor, inv: torch.Tensor, weights: torch.Tensor) 
 def subm_conv_wgrad(features: torch.Tensor, nbr: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """d/dW of K1. features [K, Cin]; nbr [Ko, D] int32 (K = miss); dy
     [Ko, Cout] (invalid rows zeroed) -> [D, Cin, Cout]."""
+    if flops.counting:
+        return counted_ops().wgrad(features, nbr, dy)
+    return _wgrad(features, nbr, dy)
+
+
+def _wgrad(features, nbr, dy):
     if features.device.type == "cpu":
         return gathered_wgrad(features, nbr, dy)
     if features.dtype != torch.float32 or dy.dtype != torch.float32 or nbr.dtype != torch.int32:
@@ -145,6 +162,12 @@ def subm_conv_wgrad(features: torch.Tensor, nbr: torch.Tensor, dy: torch.Tensor)
 
 
 def _forward(features, nbr, weights, valid_out):
+    if flops.counting:
+        return counted_ops().gemm(features, nbr, weights, valid_out)
+    return _gemm(features, nbr, weights, valid_out)
+
+
+def _gemm(features, nbr, weights, valid_out):
     if features.device.type == "cpu":
         return gathered_matmul(features, nbr, weights, valid_out)
     _check("subm_conv_gemm", features, nbr, weights, valid_out)
@@ -191,6 +214,43 @@ def subm_conv_gemm(
     ):
         raise ValueError("subm_conv_gemm: d/dfeat needs the [K, D] int32 inverse table")
     return _SubmConvGemm.apply(features, nbr, weights, valid_out, inv)
+
+
+@functools.lru_cache(maxsize=None)
+def counted_ops() -> SimpleNamespace:
+    """The three kernels as custom operators (``di_port::subm_conv_*``),
+    each with its operation count registered for ``FlopCounterMode``;
+    registered on first use. The wrappers call them only while
+    ``flops.counting`` is set."""
+    from torch.library import custom_op
+    from torch.utils.flop_counter import register_flop_formula
+
+    @custom_op("di_port::subm_conv_gemm", mutates_args=())
+    def gemm(features: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
+             valid_out: torch.Tensor) -> torch.Tensor:
+        return _gemm(features, nbr, weights, valid_out)
+
+    @custom_op("di_port::subm_conv_dgrad", mutates_args=())
+    def dgrad(dy: torch.Tensor, inv: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+        return _dgrad(dy, inv, weights)
+
+    @custom_op("di_port::subm_conv_wgrad", mutates_args=())
+    def wgrad(features: torch.Tensor, nbr: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+        return _wgrad(features, nbr, dy)
+
+    @register_flop_formula(torch.ops.di_port.subm_conv_gemm, get_raw=True)
+    def _gemm_ops(features, nbr, weights, valid_out, out_val=None):
+        return flops.k1_ops(flops.k1_hits(nbr, features.shape[0], valid_out), features.shape[1], weights.shape[-1])
+
+    @register_flop_formula(torch.ops.di_port.subm_conv_dgrad, get_raw=True)
+    def _dgrad_ops(dy, inv, weights, out_val=None):
+        return flops.k1_ops(flops.k1_hits(inv, dy.shape[0]), dy.shape[1], weights.shape[1])
+
+    @register_flop_formula(torch.ops.di_port.subm_conv_wgrad, get_raw=True)
+    def _wgrad_ops(features, nbr, dy, out_val=None):
+        return flops.k1_ops(flops.k1_hits(nbr, features.shape[0]), features.shape[1], dy.shape[1])
+
+    return SimpleNamespace(gemm=gemm, dgrad=dgrad, wgrad=wgrad)
 
 
 subm_conv_gemm.launches = 0

@@ -66,6 +66,9 @@ def build_targets(
     acfg: AssignerConfig,
     bev_shape: Tuple[int, int],
 ) -> Targets:
+    if acfg.lap_impl != "callback":
+        raise ValueError(f"model.assigner.lap_impl={acfg.lap_impl!r}: the port matches with scipy on the host "
+                         "('callback'); the JAX package's on-device auction LAP is not ported")
     coder = TransFusionBBoxCoder(ccfg)
     nl = max(dcfg.num_mmpi, 1)
     p = preds["center"].shape[1] // nl

@@ -54,16 +54,62 @@ def parse_args(argv: Optional[List[str]] = None):
     return p.parse_args(argv)
 
 
+def build_model(cfg, train: bool, device, zeros: bool = False):
+    """The benchmarked detector on ``device``: random weights from
+    ``cfg.seed`` (all zero, parameters and buffers, with ``zeros``), the
+    test-time proposal count unless ``train``."""
+    import torch
+
+    from ..models.detector import DeepInteraction
+    from ..utils.synthetic import init_weights
+
+    p = None if train else cfg.test_num_proposals
+    model = DeepInteraction(cfg.model, cfg.data.padded_img_shape, num_proposals=p)
+    init_weights(model, seed=cfg.seed)
+    if zeros:
+        with torch.no_grad():
+            for t in model.state_dict().values():
+                t.zero_()
+    return model.to(device)
+
+
+def synthetic_batches(cfg, n: int, batch: int, train: bool, device) -> list:
+    """``n`` distinct synthetic batches of ``batch`` samples (seeds 0..n-1),
+    with ground truth for ``train``, resident on ``device``."""
+    from ..utils.synthetic import make_synthetic_batch, to_torch
+
+    return [to_torch(make_synthetic_batch(cfg, b=batch, seed=s, with_gt=train), device) for s in range(n)]
+
+
+def make_run(cfg, model, batches: list, train: bool, device):
+    """``run(i)``: one iteration on ``batches[i % len(batches)]``, the train
+    step (a ``TrainStep`` built here, generator seeded 0) or the eval
+    forward + ``get_bboxes``; returns the loss or the scores."""
+    import torch
+
+    from ..inference import get_bboxes
+    from ..train.step import TrainStep
+
+    if train:
+        step = TrainStep(cfg, model, total_steps=1000, device=device)
+        generator = torch.Generator(device=device).manual_seed(0)
+
+        def run(i):
+            return step(batches[i % len(batches)], generator)["loss_total"]
+    else:
+        dcfg, p = cfg.model.pts_bbox_head, cfg.test_num_proposals
+
+        def run(i):
+            return get_bboxes(model(batches[i % len(batches)]), dcfg, cfg.model.bbox_coder, p).scores
+    return run
+
+
 def main(argv: Optional[List[str]] = None) -> Dict:
     """Run the benchmark; returns the JSON line's record."""
     import torch
 
-    from ..inference import get_bboxes
-    from ..models.detector import DeepInteraction
     from ..ops import cuda_lib
     from ..ops.images import to_device
-    from ..train.step import TrainStep
-    from ..utils.synthetic import init_weights, make_synthetic_batch, to_torch
     from .train import launch_counts
 
     args = parse_args(argv)
@@ -80,17 +126,12 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     cfg = CONFIGS[args.config]()
     if args.cfg_options:
         cfg = apply_overrides(cfg, dict(kv.split("=", 1) for kv in args.cfg_options))
-    p = cfg.test_num_proposals
-    model = DeepInteraction(cfg.model, cfg.data.padded_img_shape, num_proposals=None if args.train else p)
-    init_weights(model, seed=cfg.seed)
-    model.to(device)
+    model = build_model(cfg, args.train, device)
 
     synthetic = args.synthetic or not args.infos
     if synthetic:
         # train mode holds fewer distinct batches on the device
-        n = min(args.samples, 2 if args.train else 4)
-        batches = [to_torch(make_synthetic_batch(cfg, b=args.batch, seed=s, with_gt=args.train), device)
-                   for s in range(n)]
+        batches = synthetic_batches(cfg, min(args.samples, 2 if args.train else 4), args.batch, args.train, device)
     else:
         loader = DataLoader(NuScenesDataset(cfg, args.infos, train=args.train), args.batch, num_workers=4)
         limit = min(args.samples, 2) if args.train else args.samples
@@ -106,17 +147,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         if not batches:
             raise ValueError(f"{args.infos} gives no batch of {args.batch}")
 
-    if args.train:
-        step = TrainStep(cfg, model, total_steps=1000, device=device)
-        generator = torch.Generator(device=device).manual_seed(0)
-
-        def run(i):
-            return step(batches[i % len(batches)], generator)["loss_total"]
-    else:
-        dcfg = cfg.model.pts_bbox_head
-
-        def run(i):
-            return get_bboxes(model(batches[i % len(batches)]), dcfg, cfg.model.bbox_coder, p).scores
+    run = make_run(cfg, model, batches, args.train, device)
 
     t0 = time.perf_counter()
     out = run(0)

@@ -37,8 +37,8 @@ global batch's), TensorBoard, the checkpoints and the profiler trace; the
 evaluations are sharded over the ranks and scored on rank 0. The summary
 line also counts the train steps' collectives and their all-reduced bytes
 (``parallel/mesh.py``). The Hungarian matching has one
-implementation (scipy on the host, ``ops/hungarian.py``), so there is no
-``lap_impl`` override. ``cfg.data.gt_database`` is not passed to the
+implementation (scipy on the host, ``ops/hungarian.py``): any
+``model.assigner.lap_impl`` but ``callback`` raises. ``cfg.data.gt_database`` is not passed to the
 dataset, as the JAX CLI does not pass it.
 """
 

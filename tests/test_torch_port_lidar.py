@@ -57,12 +57,26 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-@pytest.mark.parametrize("name", ["fusion_base_config", "tiny_config", "lidar_only_config", "tiny_lidar_config"])
+@pytest.mark.parametrize("name", ["fusion_base_config", "tiny_config", "lidar_only_config", "tiny_lidar_config",
+                                  "dryrun_config"])
 def test_configs_copy_equals_jax(name):
     want, got = getattr(jcfg, name)(), getattr(tcfg, name)()
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.model.pts_voxel_layer.grid_size == want.model.pts_voxel_layer.grid_size
     assert got.data.padded_img_shape == want.data.padded_img_shape
+
+
+@pytest.mark.parametrize("impl", ["auction", "scipy"])
+def test_lap_impl_other_than_callback_raises(impl):
+    """The port matches with scipy on the host (JAX's ``callback``); another
+    ``model.assigner.lap_impl`` is refused, not silently run as scipy."""
+    from deepinteraction_tpu_torch.targets.assign import build_targets
+
+    cfg = tcfg.apply_overrides(tcfg.tiny_lidar_config(), {"model.assigner.lap_impl": impl})
+    assert cfg.model.assigner.lap_impl == impl
+    m = cfg.model
+    with pytest.raises(ValueError, match="auction LAP is not ported"):
+        build_targets({}, None, None, None, m.pts_bbox_head, m.bbox_coder, m.assigner, (8, 8))
 
 
 @pytest.fixture(scope="module")

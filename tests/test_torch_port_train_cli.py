@@ -41,7 +41,7 @@ from deepinteraction_tpu_torch.data import DataLoader, NuScenesDataset
 from deepinteraction_tpu_torch.data.nuscenes_converter import create_nuscenes_infos
 from deepinteraction_tpu_torch.models.detector import DeepInteraction
 from deepinteraction_tpu_torch.ops.images import to_device
-from deepinteraction_tpu_torch.tools import benchmark, train
+from deepinteraction_tpu_torch.tools import benchmark, get_flops, trace_model, train
 from deepinteraction_tpu_torch.tools import test as test_cli
 from deepinteraction_tpu_torch.train.checkpoint import load_weights
 from deepinteraction_tpu_torch.train.step import TrainStep
@@ -188,10 +188,12 @@ def test_benchmark_cli_prints_its_json_line(mode, capsys):
     assert ("steps_per_s" if mode == "train" else "frames_per_s") in last
 
 
-@pytest.mark.parametrize("cli", ["train", "benchmark"])
+@pytest.mark.parametrize("cli", ["train", "benchmark", "get_flops", "trace_model"])
 def test_cli_needs_a_card_unless_told(trees, cli):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    main = train.main if cli == "train" else benchmark.main
+    main = {"train": train.main, "benchmark": benchmark.main, "get_flops": get_flops.main,
+            "trace_model": trace_model.main}[cli]
+    argv = ["tiny_lidar", "--infos", trees[0]] if cli in ("train", "benchmark") else ["tiny_lidar"]
     with pytest.raises(RuntimeError, match="--device cpu"):
-        main(["tiny_lidar", "--infos", trees[0]])
+        main(argv)
