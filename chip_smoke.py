@@ -204,6 +204,29 @@ The ninth is the rest of the host side:
     counts (21 and 6), device ms a run, the busy share, the top categories
     and scopes.
 
+The tenth is the JAX package's shipped defaults (``levers.py``): every
+phase above builds its models with ``EvalLevers.from_env()``, so with no
+``DI_*`` variable set they run nearest top-2-view I2P, the top-2-view
+BEVWarp scatter and, in ++ eval, MSDA's top-k points, as the JAX package
+does by default. Then:
+
+27. with no ``DI_*`` variable set, the ``fusion_base`` eval forward at full
+    width, B=1, on phase 19's first realistic frame, from phase 19's
+    checkpoint: K1 and K2 launches (21 and 6), every head against the same
+    frame with both kernels swapped for their plain versions under the same
+    settings, sort orders replayed (SLICE_TOL of scale, labels and masks
+    exact); how many pillars and points three or more views see; layer 0's
+    I2P output at top-2 views against all views over the pillars at most
+    two views see, and with the 8-key dedupe against nearest over the
+    pillars whose views hold at most 8 distinct pixels (LEVER_TOL of
+    scale); ms/frame and peak memory at the defaults, at parity, with the
+    dedupe and with dense bf16, and the heads' deltas (logged); the ++
+    frame at the defaults (joint top-4 MSDA; 21 K1 launches) against
+    parity, ms/frame and the heads' deltas; the tiny model at 6 views with
+    the dedupe and the lite depth fill, card against the CPU path; ``python
+    -m deepinteraction_tpu_torch.tools.gate_eval fusion_base --gates parity
+    default`` on phase 19's tree and checkpoint, its tables printed.
+
 Record and replay of ReLU masks, sort orders, dropout masks, sampling
 positions, boxes and L1 signs span the whole forward and backward (:func:`step_grads` wraps
 ``TrainStep.backward``), so the calls that the backward's recompute of the
@@ -224,6 +247,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import gc
 import json
 import os
@@ -265,9 +289,11 @@ from deepinteraction_tpu_torch.profile_train import MODULES, fenced_module_times
 from deepinteraction_tpu_torch.targets import assign
 from deepinteraction_tpu_torch.tools import ensemble
 from deepinteraction_tpu_torch.tools import test as test_cli
-from deepinteraction_tpu_torch.train.checkpoint import save_checkpoint
+from deepinteraction_tpu_torch.levers import EvalLevers
+from deepinteraction_tpu_torch.train.checkpoint import load_weights, save_checkpoint
 from deepinteraction_tpu_torch.train.step import TrainStep
 from deepinteraction_tpu_torch.utils.synthetic import init_weights, make_synthetic_batch, to_torch
+from deepinteraction_tpu_torch.utils.geometry import nearest_row_ids, transform_points
 from deepinteraction_tpu_torch.utils.synthetic_nuscenes import write_realistic_nuscenes
 
 # K1 and K2 keep fp32 accuracy like their plain versions (split TF32 on the
@@ -354,6 +380,12 @@ TRANSFORM_TOL = 1e-3
 # Phase 26: the launches a traced fusion_base eval run must show (phase 7's
 # counts a frame)
 TRACE_LAUNCHES = {"subm_conv_gemm": 21, "local_attn_fwd": 6}
+# Phase 27: top-2 views against all views over pillars that at most two
+# views see, and the key dedupe against nearest over pillars whose views
+# hold at most LEVER_DEDUPE distinct pixels: the same keys in another order
+# (or once with a log-count bias), so rounding apart; of scale
+LEVER_TOL = 1e-4
+LEVER_DEDUPE = 8
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(REPO, "deepinteraction_tpu_torch", "fixtures")
 SMOKE_DIR = os.path.join(REPO, "work_dirs", "chip_smoke")  # listed in .gitignore; removed after the run
@@ -744,9 +776,10 @@ def headline(rec: dict, shape: str) -> dict:
             "shapes": rec["shapes"]}
 
 
-def check_tiny(dev, cfg, name: str):
-    """A tiny config on the card (kernels) vs the port's CPU path."""
-    model = DeepInteraction(cfg.model, cfg.data.padded_img_shape, cfg.test_num_proposals).eval()
+def check_tiny(dev, cfg, name: str, levers: EvalLevers | None = None):
+    """A tiny config on the card (kernels) vs the port's CPU path, with
+    ``levers`` (default: from the environment)."""
+    model = DeepInteraction(cfg.model, cfg.data.padded_img_shape, cfg.test_num_proposals, levers=levers).eval()
     init_weights(model, seed=7)
     np_batch = make_synthetic_batch(cfg, b=1, seed=7)
     ref = model(to_torch(np_batch, "cpu"))
@@ -2134,6 +2167,236 @@ def run_tools() -> None:
     log(f"phase 26 took {time.perf_counter() - t_start:.1f} s")
 
 
+def views_seen(mb: dict, input_shape) -> tuple:
+    """How many views see each pillar (through its valid points) and each
+    valid point of the detector's I2P batch ``mb``: ([B, Kp], [B, N]),
+    0 for padding."""
+    p = mb["pillars"].shape[2]
+    _, kmask = mmri_encoder.i2p_geometry(mb["pillars"], mb["pillar_counts"], mb["lidar2img"],
+                                         mb["lidar_aug_inv"], input_shape)
+    v = mb["lidar2img"].shape[1]
+    pillar_views = kmask.reshape(kmask.shape[0], -1, p, v).any(2).sum(-1) * mb["pillar_valid"]
+    point_views = []
+    for i in range(mb["points"].shape[0]):
+        raw = transform_points(mb["lidar_aug_inv"][i], mb["points"][i, :, :3])
+        hom = torch.cat([raw, torch.ones_like(raw[:, :1])], -1)
+        ok = torch.stack([mmri_encoder._project(hom, m, input_shape)[1] for m in mb["lidar2img"][i]])
+        point_views.append(ok.sum(0) * mb["points_mask"][i])
+    return pillar_views, torch.stack(point_views)
+
+
+def distinct_pixels(mb: dict, input_shape, feat_hw) -> torch.Tensor:
+    """[B, Kp, 2] distinct nearest feature pixels among each pillar's valid
+    keys in each of its top-2 views (the dedupe's count)."""
+    gsel, vidx, kmask = mmri_encoder.i2p_geometry(mb["pillars"], mb["pillar_counts"], mb["lidar2img"],
+                                                  mb["lidar_aug_inv"], input_shape, 2)
+    v = mb["lidar2img"].shape[1]
+    ids, inside = nearest_row_ids((v, *feat_hw), gsel, vidx)
+    big = v * feat_hw[0] * feat_hw[1]
+    sids = torch.sort(torch.where(kmask.reshape(ids.shape) & inside, ids, torch.full_like(ids, big)), -1).values
+    first = torch.ones_like(sids, dtype=torch.bool)
+    first[..., 1:] = sids[..., 1:] != sids[..., :-1]
+    return (first & (sids < big)).sum(-1)
+
+
+def pillar_cells(mb: dict, bev: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """The rows of a BEV map [B, Hb, Wb, C] at the pillars where ``keep``
+    [B, Kp] holds."""
+    return torch.cat([bev[i][mb["pillar_coords"][i, keep[i], 1].long(), mb["pillar_coords"][i, keep[i], 2].long()]
+                      for i in range(bev.shape[0])])
+
+
+def frame_ms(model, batch, cfg, p) -> tuple:
+    """ms/frame (eval forward + ``get_bboxes``, median of REPS after WARMUP)
+    and the peak memory of the timed frames in GiB."""
+    def frame():
+        get_bboxes(model(batch), cfg.model.pts_bbox_head, cfg.model.bbox_coder, p)
+
+    for _ in range(WARMUP):
+        frame()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), torch.cuda.max_memory_allocated() / 2**30
+
+
+def head_deltas(got: dict, ref: dict) -> str:
+    return ", ".join(f"{k} {rel_err(got[k].float(), ref[k].float())[1]:.3e}" for k in sorted(ref)
+                     if k not in ("query_labels", "on_image_masks"))
+
+
+def run_levers(dev, paths: dict, smi: str) -> dict:
+    """Phase 27: the port at the JAX package's shipped defaults
+    (``levers.py``), with no ``DI_*`` variable set, on phase 19's first
+    realistic frame, B=1; the ++ frame at the defaults; the tiny model with
+    the other settings on, card against CPU; ``tools.gate_eval`` with
+    ``--gates parity default`` on phase 19's tree and checkpoint. Returns
+    the kernel launches of the two default frames."""
+    t_start = time.perf_counter()
+    assert not [k for k in os.environ if k.startswith("DI_")], "phase 27 runs with no DI_* variable set"
+    levers = EvalLevers.from_env()
+    assert levers == EvalLevers(), levers
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = fusion_base_config()
+    p = cfg.test_num_proposals
+    host = next(DataLoader(NuScenesDataset(cfg, paths["val"], train=False), 1, num_workers=0).epoch(0, shuffle=False))
+    host.pop("pad_count"), host.pop("token")
+    batch = to_device(host, cfg.data, dev)
+    shape = cfg.data.padded_img_shape
+
+    def build(lv, config=cfg):
+        return load_weights(paths["ckpt"], DeepInteraction(config.model, config.data.padded_img_shape, p,
+                                                           levers=lv).to(dev).eval())
+
+    def with_i2p(model, store: dict):
+        """Record layer 0's I2P output and the I2P batch of ``model``."""
+        neck = model.imgpts_neck
+        return [neck.layer0.i2p.register_forward_hook(lambda m, a, o: store.__setitem__("i2p", o)),
+                neck.register_forward_pre_hook(lambda m, a: store.update(img=a[0], mb=a[2]))]
+
+    counted = (smc.subm_conv_gemm, smc.subm_conv_dgrad, smc.subm_conv_wgrad, la.local_attn_fwd, la.local_attn_bwd)
+    default = build(levers)
+    ref = {}
+    hooks = with_i2p(default, ref)
+    orders, flips = [], []
+    for c in counted:
+        c.launches = 0
+    with sort_orders(orders, False, flips):
+        preds = default(batch)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counted}
+    log(f"fusion_base eval at the JAX defaults {levers} on phase 19's first realistic frame, B=1: launches "
+        f"{launches}")
+    assert launches == {"subm_conv_gemm": 21, "subm_conv_dgrad": 0, "subm_conv_wgrad": 0, "local_attn_fwd": 6,
+                        "local_attn_bwd": 0}, launches
+    for h in hooks:
+        h.remove()
+    with plain_kernels(), sort_orders(orders, True, flips):
+        plain = default(batch)
+    torch.cuda.synchronize()
+    errs = {k: rel_err(preds[k].float(), plain[k].float())[1] for k in preds if k not in ("query_labels",
+                                                                                         "on_image_masks")}
+    exact = {k: torch.equal(preds[k], plain[k]) for k in ("query_labels", "on_image_masks")}
+    log(f"defaults, kernels vs plain (sort orders replayed; {sum(flips)} of {len(flips)} sorts differed): worst "
+        f"head {max(errs, key=errs.get)} {max(errs.values()):.3e} of scale (tolerance {SLICE_TOL}); exact {exact}")
+    assert max(errs.values()) <= SLICE_TOL and all(exact.values()), (errs, exact)
+    del plain, orders
+
+    mb = ref["mb"]
+    pillar_views, point_views = views_seen(mb, shape)
+    valid = mb["pillar_valid"]
+    n3, p3 = int((pillar_views >= 3).sum()), int((point_views >= 3).sum())
+    log(f"views a pillar's points reach: {torch.bincount(pillar_views[valid]).tolist()} pillars with 0, 1, 2, ... "
+        f"views of {int(valid.sum())}; points: {torch.bincount(point_views[mb['points_mask']]).tolist()} of "
+        f"{int(mb['points_mask'].sum())}; {n3} pillars and {p3} points reach three or more")
+
+    def layer0_i2p(lv):
+        store = {}
+        model = build(lv)
+        hooks = with_i2p(model, store)
+        model(batch)
+        for h in hooks:
+            h.remove()
+        return model, store["i2p"]
+
+    _, all_i2p = layer0_i2p(dataclasses.replace(levers, i2p_views=0))
+    few = valid & (pillar_views <= 2)
+    d = (pillar_cells(mb, all_i2p, few) - pillar_cells(mb, ref["i2p"], few)).abs().max().item()
+    scale = ref["i2p"].abs().max().item()
+    d3 = (pillar_cells(mb, all_i2p, valid & (pillar_views >= 3)) - pillar_cells(
+        mb, ref["i2p"], valid & (pillar_views >= 3))).abs().max().item() if n3 else 0.0
+    log(f"I2P layer 0, top-2 views vs all views: max abs diff {d:.3e} over the {int(few.sum())} pillars at most "
+        f"two views see ({d / scale:.3e} of scale {scale:.3e}; tolerance {LEVER_TOL}); {d3:.3e} over the {n3} "
+        "that three or more see")
+    assert d <= LEVER_TOL * scale, (d, scale)
+
+    dedupe, dd_i2p = layer0_i2p(dataclasses.replace(levers, i2p_dedupe=LEVER_DEDUPE))
+    distinct = distinct_pixels(mb, shape, ref["img"].shape[2:4])
+    small = valid & (distinct <= LEVER_DEDUPE).all(-1)
+    d = (pillar_cells(mb, dd_i2p, small) - pillar_cells(mb, ref["i2p"], small)).abs().max().item()
+    log(f"I2P layer 0, dedupe {LEVER_DEDUPE} vs nearest top-2: max abs diff {d:.3e} over the {int(small.sum())} "
+        f"pillars whose views hold at most {LEVER_DEDUPE} distinct pixels ({d / scale:.3e} of scale; tolerance "
+        f"{LEVER_TOL}); {int((valid[..., None] & (distinct > LEVER_DEDUPE)).sum())} pillar-views hold more; "
+        f"distinct pixels a pillar-view: mean {distinct[valid].float().mean().item():.2f}, max "
+        f"{int(distinct[valid].max())}")
+    assert d <= LEVER_TOL * scale, (d, scale)
+
+    parity = build(EvalLevers.parity())
+    bf16 = build(dataclasses.replace(levers, dense_bf16=True))
+    with torch.no_grad():
+        par_preds, dd_preds, bf_preds = parity(batch), dedupe(batch), bf16(batch)
+    times = {}
+    for name, model in (("defaults", default), ("parity", parity), ("dedupe 8", dedupe), ("dense bf16", bf16)):
+        times[name] = frame_ms(model, batch, cfg, p)
+    state = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu", "--format=csv,noheader"],
+                           capture_output=True, text=True).stdout.strip()
+    log(f"card after the timed frames: SM clock, power, temperature {state}; host load average {os.getloadavg()}")
+    log(f"fusion_base eval + get_bboxes, realistic frame, B=1 ({smi}): ms/frame and peak GiB "
+        + "; ".join(f"{k} {ms:.3f} ({gib:.3f})" for k, (ms, gib) in times.items())
+        + f"; heads of the defaults vs parity: {head_deltas(preds, par_preds)}; dedupe 8 vs the defaults: "
+        f"{head_deltas(dd_preds, preds)}; dense bf16 vs the defaults: {head_deltas(bf_preds, preds)}")
+    del default, parity, dedupe, bf16, preds, par_preds, dd_preds, bf_preds, ref, mb, all_i2p, dd_i2p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pcfg = fusion_plusplus_config()
+    host = next(DataLoader(NuScenesDataset(pcfg, paths["val"], train=False), 1, num_workers=0).epoch(0,
+                                                                                                   shuffle=False))
+    host.pop("pad_count"), host.pop("token")
+    pbatch = to_device(host, pcfg.data, dev)
+    pp = {}
+    for name, lv in (("defaults", levers), ("parity", EvalLevers.parity())):
+        model = DeepInteraction(pcfg.model, pcfg.data.padded_img_shape, pcfg.test_num_proposals,
+                                levers=lv).to(dev).eval()
+        init_weights(model, seed=0)
+        for c in counted:
+            c.launches = 0
+        pp[name] = model(pbatch)
+        torch.cuda.synchronize()
+        if name == "defaults":
+            pp_launches = {c.__name__: c.launches for c in counted}
+            assert pp_launches == {"subm_conv_gemm": 21, "subm_conv_dgrad": 0, "subm_conv_wgrad": 0,
+                                   "local_attn_fwd": 0, "local_attn_bwd": 0}, pp_launches
+        pp[name + " ms"] = frame_ms(model, pbatch, pcfg, pcfg.test_num_proposals)
+        del model
+    log(f"fusion_plusplus eval + get_bboxes at the JAX defaults (joint top-4 MSDA), realistic frame, B=1 ({smi}): "
+        f"launches {pp_launches}; ms/frame and peak GiB defaults {pp['defaults ms'][0]:.3f} "
+        f"({pp['defaults ms'][1]:.3f}), parity {pp['parity ms'][0]:.3f} ({pp['parity ms'][1]:.3f}); heads of the "
+        f"defaults vs parity: {head_deltas(pp['defaults'], pp['parity'])}")
+    del pp, pbatch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the gates in processes of their own, beside the tiny model on the CPU
+    workdir = os.path.join(SMOKE_DIR, "gates")
+    with ThreadPoolExecutor(1) as pool:
+        gates = pool.submit(subprocess.run, [
+            sys.executable, "-m", "deepinteraction_tpu_torch.tools.gate_eval", "fusion_base", paths["ckpt"],
+            "--infos", paths["val"], "--gates", "parity", "default", "--workdir", workdir,
+            "--out", os.path.join(workdir, "gates.json")], capture_output=True, text=True, timeout=600, cwd=REPO)
+        tiny = tiny_config()
+        tiny = dataclasses.replace(tiny, data=dataclasses.replace(tiny.data, num_views=6))
+        check_tiny(dev, tiny, f"tiny_config at 6 views, {LEVER_DEDUPE}-key dedupe and the lite depth fill",
+                   levers=dataclasses.replace(levers, i2p_dedupe=LEVER_DEDUPE, depth_fill_lite=True))
+        proc = gates.result()
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    with open(os.path.join(workdir, "gates.json")) as f:
+        rows = {r["gate"]: r for r in json.load(f)["rows"]}
+    assert rows["parity"]["levers"] == dataclasses.asdict(EvalLevers.parity()), rows["parity"]
+    assert rows["default"]["levers"] == dataclasses.asdict(EvalLevers()), rows["default"]
+    table = [line for line in proc.stdout.splitlines() if line.startswith("|")]
+    log(f"tools.gate_eval fusion_base --gates parity default (phase 19's tree and checkpoint, {smi}):\n"
+        + "\n".join(table))
+    log(f"phase 27 took {time.perf_counter() - t_start:.1f} s")
+    return {"fusion_base": launches, "fusion_plusplus": pp_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2174,6 +2437,7 @@ def main() -> int:
         cli_paths.update(run_dist(paths, fusion_run, cli_launches))
         run_host_side(dev, paths["val"])
         run_tools()
+        lever_launches = run_levers(dev, paths, smi)
     finally:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
 
@@ -2182,11 +2446,14 @@ def main() -> int:
     fusion_path, pp_path = "fusion_base train step, B=2", "fusion_plusplus eval, B=1"
     pp_train_path = "fusion_plusplus train step, B=2"
     cli_path = "fusion_base eval CLI (tools.test), 9 frames, B=2"
+    lever_paths = {"fusion_base": "fusion_base eval at the JAX defaults, realistic frame, B=1",
+                   "fusion_plusplus": "fusion_plusplus eval at the JAX defaults, realistic frame, B=1"}
 
     def by_path(name, eval_n=0):
         return {eval_path: eval_n, train_path: train_launches.get(name, 0), fusion_path: fusion_launches[name],
                 pp_path: pp_launches[name], pp_train_path: pp_train_launches[name], cli_path: cli_launches[name],
-                **{path: counts[name] for path, counts in cli_paths.items()}}
+                **{path: counts[name] for path, counts in cli_paths.items()},
+                **{lever_paths[k]: counts[name] for k, counts in lever_launches.items()}}
 
     fwd = dict(k1["fwd"], shapes=k1_eval["shapes"] + k1["fwd"]["shapes"] + k1_real["shapes"],
                ms_per_frame=k1_eval["ms_per_frame"], ms_per_realistic_frame=k1_real["ms_per_frame"],

@@ -37,7 +37,7 @@ import torch
 from torch import nn
 
 from ..configs import ModelConfig
-
+from ..levers import EvalLevers
 from ..ops.voxelize import hard_simple_vfe, voxelize_batched
 from .decoder import Decoder
 from .fpn import FPN
@@ -51,11 +51,21 @@ from .swin import SwinTransformer
 
 
 class DeepInteraction(nn.Module):
-    def __init__(self, cfg: ModelConfig, input_shape, num_proposals: int | None = None):
+    """``levers``: the JAX package's ``DI_*`` settings
+    (:class:`~deepinteraction_tpu_torch.levers.EvalLevers`); ``None``
+    reads them from the environment once, here, as the JAX package reads
+    its own, so with no ``DI_*`` variable set the model computes what the
+    JAX package computes by default."""
+
+    def __init__(self, cfg: ModelConfig, input_shape, num_proposals: int | None = None,
+                 levers: EvalLevers | None = None):
         super().__init__()
         self.cfg = cfg
         self.input_shape = tuple(input_shape)
         self.num_proposals = num_proposals
+        self.levers = lv = EvalLevers.from_env() if levers is None else levers
+        neck_levers = dict(i2p_views=lv.i2p_views, i2p_sample=lv.i2p_sample, warp_views=lv.warp_views,
+                           depth_fill_lite=lv.depth_fill_lite)
         if not cfg.lidar_only:
             ib = cfg.img_backbone
             if ib.type == "resnet":
@@ -88,6 +98,9 @@ class DeepInteraction(nn.Module):
                 cfg.pts_neck.out_channels[0],
                 cfg.pts_voxel_layer.point_cloud_range,
                 self.input_shape,
+                msda_joint_points=lv.msda_joint_points,
+                msda_eval_points=lv.msda_eval_points,
+                **neck_levers,
             )
         else:
             self.imgpts_neck = MMRIEncoder(
@@ -96,6 +109,8 @@ class DeepInteraction(nn.Module):
                 sum(cfg.pts_neck.out_channels),
                 cfg.pts_voxel_layer.point_cloud_range,
                 self.input_shape,
+                i2p_dedupe=lv.i2p_dedupe,
+                **neck_levers,
             )
         self.pts_bbox_head = Decoder(cfg.pts_bbox_head, cfg.bbox_coder, self.input_shape)
 
@@ -107,8 +122,10 @@ class DeepInteraction(nn.Module):
         with torch.no_grad():
             return fn(batch, False, None)
 
-    def _lidar_bev(self, batch, train: bool):
-        """Voxelize -> sparse encoder -> SECOND + SECONDFPN outputs."""
+    def _lidar_bev(self, batch, train: bool, dense_dtype=None):
+        """Voxelize -> sparse encoder -> SECOND + SECONDFPN outputs (with
+        ``dense_dtype``, SECOND and SECONDFPN run in it and the outputs come
+        back in fp32)."""
         vl = self.cfg.pts_voxel_layer
         cap = vl.max_voxels[0] if train else vl.max_voxels[1]
         vo = voxelize_batched(
@@ -118,7 +135,9 @@ class DeepInteraction(nn.Module):
         )
         vvalid = torch.arange(cap, device=vo.coords.device)[None] < vo.num_voxels[:, None]
         bev = self.pts_middle_encoder(hard_simple_vfe(vo.voxels, vo.num_points), vo.coords, vvalid, train)
-        return self.pts_neck(self.pts_backbone(bev, train), train)
+        if dense_dtype is None:
+            return self.pts_neck(self.pts_backbone(bev, train), train)
+        return [f.float() for f in self.pts_neck(self.pts_backbone(bev.to(dense_dtype), train), train)]
 
     def _lidar_only(self, batch, train: bool, generator):
         """JAX ``DeepInteraction._lidar_only``: ``shared_conv`` on the
@@ -135,13 +154,24 @@ class DeepInteraction(nn.Module):
         b, v = batch["images"].shape[:2]
         pp = cfg.imgpts_neck.variant == "pp"
 
+        # the JAX package's DI_DENSE_BF16 (eval): ResNet, FPN, SECOND and
+        # SECONDFPN on bf16 activations (Conv2d casts its parameters to
+        # them, BN normalises in fp32 and rounds back), their outputs back
+        # in fp32; Swin-T stays fp32, as in JAX
+        dense = torch.bfloat16 if (self.levers.dense_bf16 and not train) else None
         imgs = batch["images"].reshape(b * v, *batch["images"].shape[2:])
         train_img = train and cfg.img_backbone.frozen_stages < 0
+        if dense is not None and cfg.img_backbone.type == "resnet":
+            imgs = imgs.to(dense)
         feats = self.img_backbone(imgs, train_img, generator)
+        if dense is not None:
+            feats = [f.to(dense) for f in feats]
         # ++ reads FPN levels 0-1, v1 level 0
         img_feats = [f.reshape(b, v, *f.shape[1:]) for f in self.img_neck(feats, num_levels=2 if pp else 1)]
+        if dense is not None:
+            img_feats = [f.float() for f in img_feats]
 
-        neck_outs = self._lidar_bev(batch, train)
+        neck_outs = self._lidar_bev(batch, train, dense)
 
         pl = cfg.pts_pillar_layer
         cap = pl.max_voxels[0] if train else pl.max_voxels[1]

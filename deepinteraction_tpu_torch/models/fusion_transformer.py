@@ -1,7 +1,7 @@
 """DeepInteraction++ MMRI encoder, ``FusionTransformerPP`` (port of
-``deepinteraction_tpu/models/fusion_transformer.py``), in the reference
-form the v1 encoder has too: I2P over all views, the BEVWarp depth scatter
-per view.
+``deepinteraction_tpu/models/fusion_transformer.py``), with the JAX
+package's settings (``levers.py``) as the v1 encoder takes them, and the
+deformable attentions' top-k points in eval.
 
 A shared 3x3 conv on the 512-channel LiDAR concat map (``pts_feat_conv``),
 3x3 convs to the hidden width on the two image levels and the two BEV
@@ -91,10 +91,11 @@ class MMRI_P2I_PP(nn.Module):
     """BEVWarp, then single-level deformable attention of the image pixels
     over the warped LiDAR map."""
 
-    def __init__(self, cfg: MMRIEncoderConfig):
+    def __init__(self, cfg: MMRIEncoderConfig, msda_joint_points: int = 0, msda_eval_points: int = 0):
         super().__init__()
         c = cfg.hidden_channel
-        self.local = MSDeformableAttention(c, cfg.num_heads, 1, cfg.deform_num_points)
+        self.local = MSDeformableAttention(c, cfg.num_heads, 1, cfg.deform_num_points,
+                                           joint_points=msda_joint_points, eval_points=msda_eval_points)
 
     def forward(self, img_map, pts_map, warp_grid, train: bool = False, generator=None):
         b, v, h, w, c = img_map.shape
@@ -199,12 +200,13 @@ class FusionLayerImg(nn.Module):
     """Image-branch interaction layer: MSDA over the image levels, then
     ``MMRI_P2I_PP``; ``self_feat + scale * cross_feat``."""
 
-    def __init__(self, cfg: MMRIEncoderConfig):
+    def __init__(self, cfg: MMRIEncoderConfig, msda_joint_points: int = 0, msda_eval_points: int = 0):
         super().__init__()
         c = cfg.hidden_channel
-        self.self_attn = MSDeformableAttention(c, cfg.num_heads, cfg.num_levels, cfg.deform_num_points)
+        self.self_attn = MSDeformableAttention(c, cfg.num_heads, cfg.num_levels, cfg.deform_num_points,
+                                               joint_points=msda_joint_points, eval_points=msda_eval_points)
         self.norm0 = nn.LayerNorm(c)
-        self.p2i = MMRI_P2I_PP(cfg)
+        self.p2i = MMRI_P2I_PP(cfg, msda_joint_points, msda_eval_points)
         self.norm1 = nn.LayerNorm(c)
         self.ffn0 = TransFFN(c, 4 * c, cfg.dropout)
         self.norm2 = nn.LayerNorm(c)
@@ -229,17 +231,21 @@ class FusionLayerPts(nn.Module):
     polar I2P (when ``use_polar_i2p``, with ``norm1``) and the pillar I2P
     as a residual; ``self_feat + scale * cross_feat``."""
 
-    def __init__(self, cfg: MMRIEncoderConfig, pc_range, input_shape):
+    def __init__(self, cfg: MMRIEncoderConfig, pc_range, input_shape, i2p_views: int = 0,
+                 i2p_sample: str = "bilinear", msda_joint_points: int = 0, msda_eval_points: int = 0):
         super().__init__()
         c = cfg.hidden_channel
-        self.self_attn = MSDeformableAttention(c, cfg.num_heads, cfg.num_levels, cfg.deform_num_points)
+        self.self_attn = MSDeformableAttention(c, cfg.num_heads, cfg.num_levels, cfg.deform_num_points,
+                                               joint_points=msda_joint_points, eval_points=msda_eval_points)
         self.norm0 = nn.LayerNorm(c)
         self.use_polar_i2p = cfg.use_polar_i2p
         if cfg.use_polar_i2p:
             self.polar_i2p = PolarI2P(cfg, pc_range, input_shape, cfg.polar_radius_range,
                                       cfg.polar_num_z_bins)
             self.norm1 = nn.LayerNorm(c)
-        self.i2p = MMRI_I2P(c)
+        # JAX's ++ neck samples its keys per chunk (no hoisted geometry),
+        # where the key dedupe does not apply
+        self.i2p = MMRI_I2P(c, i2p_views, i2p_sample)
         self.norm2 = nn.LayerNorm(c)
         self.ffn0 = TransFFN(c, 4 * c, cfg.dropout)
         self.norm3 = nn.LayerNorm(c)
@@ -292,19 +298,30 @@ def recomputed(layer: nn.Module, generator: torch.Generator | None, *args):
 
 
 class FusionTransformerPP(nn.Module):
-    """Returns (new_img [B, V, h0, w0, C], (pts_feat_conv, new_pts))."""
+    """Returns (new_img [B, V, h0, w0, C], (pts_feat_conv, new_pts)).
+
+    The JAX package's settings (``levers.py``) come in as arguments, each 0
+    or off by default (the reference's math): ``i2p_views`` and
+    ``i2p_sample`` for the pillar I2P and its geometry, ``warp_views`` and
+    ``depth_fill_lite`` (eval only) for the BEVWarp grid, and the
+    deformable attentions' ``msda_joint_points`` and ``msda_eval_points``
+    (eval only)."""
 
     def __init__(self, cfg: MMRIEncoderConfig, cin_img: int, cin_pts: int, cin_pts_level: int,
-                 pc_range: Tuple[float, ...], input_shape: Tuple[int, int]):
+                 pc_range: Tuple[float, ...], input_shape: Tuple[int, int], i2p_views: int = 0,
+                 i2p_sample: str = "bilinear", warp_views: int = 0, depth_fill_lite: bool = False,
+                 msda_joint_points: int = 0, msda_eval_points: int = 0):
         super().__init__()
         c = cfg.hidden_channel
         self.cfg, self.pc_range, self.input_shape = cfg, tuple(pc_range), tuple(input_shape)
+        self.i2p_views, self.warp_views, self.depth_fill_lite = i2p_views, warp_views, depth_fill_lite
         self.shared_conv_pts = Conv2d(cin_pts, c, 3, 1, 1)
         self.multi_scale_conv_img = Conv2d(cin_img, c, 3, 1, 1)
         self.multi_scale_conv_pts = Conv2d(cin_pts_level, c, 3, 1, 1)
         for i in range(cfg.num_layers):
-            self.add_module(f"img_layer{i}", FusionLayerImg(cfg))
-            self.add_module(f"pts_layer{i}", FusionLayerPts(cfg, pc_range, input_shape))
+            self.add_module(f"img_layer{i}", FusionLayerImg(cfg, msda_joint_points, msda_eval_points))
+            self.add_module(f"pts_layer{i}", FusionLayerPts(cfg, pc_range, input_shape, i2p_views, i2p_sample,
+                                                            msda_joint_points, msda_eval_points))
 
     def forward(self, ms_img_feats: Sequence[torch.Tensor], pts_feats: Sequence[torch.Tensor],
                 batch: Dict[str, torch.Tensor], train: bool = False, generator=None):
@@ -327,9 +344,10 @@ class FusionTransformerPP(nn.Module):
             warp_grid = bevwarp_grid(
                 batch["points"], batch["points_mask"], batch["lidar2img"], batch["img2lidar"],
                 batch["lidar_aug"], batch["lidar_aug_inv"], img_shapes[0], self.input_shape, self.pc_range,
+                self.warp_views, self.depth_fill_lite and not train,
             )
             i2p_geom = i2p_geometry(batch["pillars"], batch["pillar_counts"], batch["lidar2img"],
-                                    batch["lidar_aug_inv"], self.input_shape)
+                                    batch["lidar_aug_inv"], self.input_shape, self.i2p_views)
 
         new_img = ms_img[0].reshape(b, v, *ms_img[0].shape[1:])
         new_pts = ms_pts[0]

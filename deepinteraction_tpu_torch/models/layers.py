@@ -42,22 +42,31 @@ from ..ops.dropout import apply_dropout
 from ..parallel.mesh import all_reduce, is_distributed
 
 
+def _cast(t, dtype):
+    """A parameter in the activations' dtype (no copy when it is already)."""
+    return None if t is None else t.to(dtype)
+
+
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` applied to an NHWC tensor; returns NHWC."""
+    """``nn.Conv2d`` applied to an NHWC tensor; returns NHWC, in the input's
+    dtype (the parameters are cast to it, as a Flax ``nn.Conv(dtype=...)``
+    casts them)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = _cast(self.weight, x.dtype), _cast(self.bias, x.dtype)
         if self.kernel_size == (1, 1) and self.stride == (1, 1) and self.padding == (0, 0):
-            w = self.weight.view(self.out_channels, self.in_channels)
-            return F.linear(x, w, self.bias)
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias, self.stride, self.padding)
+            return F.linear(x, w.view(self.out_channels, self.in_channels), b)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, self.stride, self.padding)
         return y.permute(0, 2, 3, 1)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
-    """``nn.ConvTranspose2d`` applied to an NHWC tensor; returns NHWC."""
+    """``nn.ConvTranspose2d`` applied to an NHWC tensor; returns NHWC, in
+    the input's dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight, self.bias, self.stride)
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), _cast(self.weight, x.dtype), _cast(self.bias, x.dtype),
+                               self.stride)
         return y.permute(0, 2, 3, 1)
 
 
@@ -85,7 +94,9 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if not train:
-            return self._normalize(x, self.running_mean, self.running_var)
+            # in the statistics' dtype, then back to the input's (Flax
+            # ``nn.BatchNorm(dtype=bf16)`` normalises a bf16 input in fp32)
+            return self._normalize(x, self.running_mean, self.running_var).to(x.dtype)
         dims = tuple(range(x.dim() - 1))
         c = x.shape[-1]
         s1, s2, n = x.sum(dims), (x * x).sum(dims), x.new_full((), x.numel() // c)

@@ -5,7 +5,8 @@
 - 5x5 median blur with replicate pad;
 - 5x5 bilateral filter (sigma_color 0.5, sigma_space 2) with reflect-101 pad;
 - the reference quirks: the stale pre-median ``valid`` mask reused for the
-  bilateral write-back, and top_row 0 for an empty column.
+  bilateral write-back, and top_row 0 for an empty column;
+- the JAX package's lite form (``lite=True``, ``DI_DEPTH_FILL_LITE``).
 
 Maps are [..., H, W].
 """
@@ -103,10 +104,14 @@ def _top_mask(valid: torch.Tensor) -> torch.Tensor:
     return rows >= top_row[..., None, :]
 
 
-def fill_in_multiscale(depth: torch.Tensor, max_depth: float = 100.0) -> torch.Tensor:
+def fill_in_multiscale(depth: torch.Tensor, max_depth: float = 100.0, lite: bool = False) -> torch.Tensor:
     """Dense depth from sparse depth, [..., H, W] -> [..., H, W]
     (extrapolate=False, blur_type='bilateral', the reference's call-site
-    settings)."""
+    settings).
+
+    ``lite`` is the JAX package's ``DI_DEPTH_FILL_LITE`` (BEVWarp applies it
+    in eval only): 2 hole-extension dilations instead of 6, and no final
+    median or bilateral pass."""
     d_in = depth if depth.is_floating_point() else depth.float()
     near = (d_in > 0.1) & (d_in <= 15.0)
     med = (d_in > 15.0) & (d_in <= 30.0)
@@ -133,14 +138,15 @@ def fill_in_multiscale(depth: torch.Tensor, max_depth: float = 100.0) -> torch.T
 
     top_mask = _top_mask(s5 > 0.1)
     s7 = s5
-    for _ in range(6):
+    for _ in range(2 if lite else 6):
         empty = (s7 < 0.1) & top_mask
         s7 = torch.where(empty, dilate(s7, FULL_5), s7)
 
-    blur = median5(s7)
-    valid = (s7 > 0.1) & top_mask
-    s7 = torch.where(valid, blur, s7)
-    # reference quirk: the bilateral write-back reuses the pre-median mask
-    s7 = torch.where(valid, bilateral5(s7, 0.5, 2.0), s7)
+    if not lite:
+        blur = median5(s7)
+        valid = (s7 > 0.1) & top_mask
+        s7 = torch.where(valid, blur, s7)
+        # reference quirk: the bilateral write-back reuses the pre-median mask
+        s7 = torch.where(valid, bilateral5(s7, 0.5, 2.0), s7)
 
     return torch.where(s7 > 0.1, max_depth - s7, s7)

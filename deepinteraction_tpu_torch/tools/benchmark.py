@@ -16,8 +16,9 @@ random from ``cfg.seed``. After one untimed first iteration and
 around work ending in ``torch.cuda.synchronize()``. It prints the JAX
 CLI's summary line, then one JSON line: ms per iteration (mean and
 median), frames or steps per second, the peak device memory of the timed
-iterations, the first iteration's seconds, the port's kernel launches of
-the timed iterations and the card's name.
+iterations, the first iteration's seconds, the JAX package's ``DI_*`` settings the
+model resolved (``levers.py``), the port's kernel launches of the timed
+iterations and the card's name.
 
 It runs on the card unless given ``--device cpu`` (then no memory is
 reported); without a card it raises. On the card it runs in fp32, TF32
@@ -27,6 +28,7 @@ off, with cuDNN autotuning (``ops/cuda_lib.py::fp32_numerics``).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import time
@@ -177,7 +179,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
               "input": "synthetic" if synthetic else args.infos, "distinct_batches": len(batches),
               "samples": args.samples, "warmup": args.warmup, "first_iter_s": first_s,
               "ms_per_iter_mean": dt * 1e3, "ms_per_iter_median": statistics.median(times) * 1e3,
-              "launches": launches,
+              "levers": dataclasses.asdict(model.levers), "launches": launches,
               "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"}
     if args.train:
         record["steps_per_s"] = 1 / dt

@@ -26,12 +26,15 @@ no collective in the forward, and ``parallel/input.py::gather_results``
 brings the (token, frame) pairs to rank 0, the rank shards in rank order
 (the JAX CLI's order). Rank 0 alone scores, writes ``--out`` and prints the
 metrics; its timings are its own shard's. The last line printed is a JSON
-summary with the timings and this process's kernel launches.
+summary with the timings, the JAX package's ``DI_*`` settings the model
+resolved (``levers.py``; with none set, the JAX package's defaults), the
+metrics and this process's kernel launches.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pickle
 import time
@@ -272,7 +275,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     res["timing"]["setup_s"] += t_eval - t_start
     print(json.dumps(res["metrics"], indent=2, sort_keys=True))
     print(json.dumps({"timing": res["timing"], "device": str(device), "config": args.config, "tta": args.tta,
-                      "launches": launch_counts()}))
+                      "levers": dataclasses.asdict(model.levers), "launches": launch_counts(),
+                      "metrics": res["metrics"]}))
     return res
 
 

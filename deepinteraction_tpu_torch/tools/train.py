@@ -20,7 +20,9 @@ the image stage), a checkpoint under ``<work_dir>/ckpts`` every
 ``eval_log.jsonl`` line every epoch (``tools/test.py::evaluate`` at the
 train-time proposal count). ``--profile-steps N`` exports a
 ``torch.profiler`` trace of steps 5 to 5+N to ``<work_dir>/trace``. The
-last line printed is a JSON summary with the port's kernel launches (the
+last line printed is a JSON summary with the JAX package's ``DI_*``
+settings the model resolved (``levers.py``: top views in train and eval,
+the eval-only ones in ``--eval-infos``) and the port's kernel launches (the
 ``ops/subm_conv.py`` and ``ops/local_attention.py`` counters) of the train
 steps and of the evaluations.
 
@@ -45,6 +47,7 @@ dataset, as the JAX CLI does not pass it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -242,7 +245,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
 
     summary = {"config": args.config, "device": str(device), "work_dir": work_dir, "ranks": world,
                "first_step": first_step, "last_step": step.step_count, "steps": step.step_count - first_step,
-               "launches": train_launches, "eval_launches": eval_launches, "collectives": collectives,
+               "levers": dataclasses.asdict(model.levers), "launches": train_launches,
+               "eval_launches": eval_launches, "collectives": collectives,
                "seconds": time.perf_counter() - t_start}
     if device.type == "cuda":
         steady_peak = max(steady_peak, take_peak())

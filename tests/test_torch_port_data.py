@@ -17,10 +17,10 @@ samples, 6 cameras of 32x24) is converted by both converters; then:
 - the slice as a whole: ``python -m deepinteraction_tpu_torch.tools.test
   tiny --device cpu`` (plain and ``--tta``) with a port checkpoint bridged
   from the JAX package's initial weights, against JAX's forward +
-  ``get_bboxes`` (+ ``tta_inference``) + metrics over the JAX loader, JAX's
-  I2P and BEVWarp in their all-view form (the port's form; JAX keeps two
-  views a pillar by default): detections rtol 2e-3 / atol 5e-4, labels
-  exact, metrics within 1e-6.
+  ``get_bboxes`` (+ ``tta_inference``) + metrics over the JAX loader, both
+  packages' I2P and BEVWarp at their shipped view settings (two views a
+  pillar and a point) and in their all-view form: detections rtol 2e-3 /
+  atol 5e-4, labels exact, metrics within 1e-6.
 """
 
 import filecmp
@@ -219,16 +219,25 @@ def test_realistic_writer_matches_jax(tmp_path):
         assert len(json.load(f)) == 2 * 2 * 6
 
 
-def _all_views(monkeypatch):
-    """JAX's I2P and BEVWarp over all views (``DI_I2P_VIEWS=0`` /
-    ``DI_WARP_VIEWS=0``): the port's only form. With six views JAX's default
-    keeps each pillar's two best (ROADMAP queue 3)."""
+def _views(views, monkeypatch):
+    """Both packages' I2P and BEVWarp view settings: ``shipped``, each at
+    its default (two views a pillar and a point); ``all``, every view
+    (``DI_I2P_VIEWS=0`` / ``DI_WARP_VIEWS=0``, which the port's CLI reads
+    and JAX's ``DI_WARP_VIEWS`` too; JAX's ``n_views`` through a
+    subclass, since it reads ``DI_I2P_VIEWS`` at import)."""
     import deepinteraction_tpu.models.mmri_encoder as jmmri
+
+    if views == "shipped":
+        for name in ("DI_I2P_VIEWS", "DI_WARP_VIEWS"):
+            monkeypatch.delenv(name, raising=False)
+        assert jmmri.MMRI_I2P.n_views == 2
+        return
 
     class AllViewsI2P(jmmri.MMRI_I2P):
         n_views: int = 0
 
     monkeypatch.setattr(jmmri, "MMRI_I2P", AllViewsI2P)
+    monkeypatch.setenv("DI_I2P_VIEWS", "0")
     monkeypatch.setenv("DI_WARP_VIEWS", "0")
 
 
@@ -282,8 +291,9 @@ def jax_variables(tree, tmp_path_factory):
     return variables, ckpt
 
 
-def test_eval_cli_matches_jax(tree, jax_variables, tmp_path, monkeypatch):
-    _all_views(monkeypatch)
+@pytest.mark.parametrize("views", ["shipped", "all"])
+def test_eval_cli_matches_jax(views, tree, jax_variables, tmp_path, monkeypatch):
+    _views(views, monkeypatch)
     _, jpath, tpath = tree
     jcfg, _ = _cfgs()
     variables, ckpt = jax_variables
@@ -308,8 +318,9 @@ def test_eval_cli_matches_jax(tree, jax_variables, tmp_path, monkeypatch):
     assert res["timing"]["frames"] == 3 and res["timing"]["fps"] > 0
 
 
-def test_eval_cli_tta_matches_jax(tree, jax_variables, monkeypatch):
-    _all_views(monkeypatch)
+@pytest.mark.parametrize("views", ["shipped", "all"])
+def test_eval_cli_tta_matches_jax(views, tree, jax_variables, monkeypatch):
+    _views(views, monkeypatch)
     _, jpath, tpath = tree
     jcfg, _ = _cfgs()
     variables, ckpt = jax_variables

@@ -8,8 +8,9 @@ package, on the CPU.
   exactly), then replayed through the ``golden_v1.npz`` digest.
 - The sparse encoder, the MMRI encoder and the decoder at tiny width, each
   fed the inputs its Flax module saw inside the same JAX forward.
-- The MMRI encoder at 6 views against JAX at its default top-2-view
-  settings; pillars whose points reach a third view are reported apart.
+- The MMRI encoder at 6 views against JAX, at JAX's default top-2-view
+  settings and in its all-view form, with a pillar whose points reach a
+  third view.
 """
 
 import numpy as np
@@ -155,16 +156,22 @@ def test_decoder_matches_flax(tiny):
     _assert_heads(got, tiny["preds"], rtol=1e-4, atol=1e-4)
 
 
-def test_mmri_encoder_six_views_vs_jax_top2(monkeypatch):
-    """Port (all six views) vs JAX (top-2 views for I2P keys and for the
-    BEVWarp scatter). The forms differ only for a pillar whose points reach
-    three or more views. Three points are placed next to the ego, at z=0 so
-    that the cameras' vertical field of view holds them, in one pillar at
-    azimuths 6, 30 and 87 degrees (views {0}, {0, 1}, {1, 2}): that pillar
-    sees three views while each point sees at most two. It is held apart
-    and its I2P error is reported; everything else must agree. Against JAX
-    in its reference-shaped all-view mode, everything agrees."""
+@pytest.mark.parametrize("views", ["top2", "all"])
+def test_mmri_encoder_six_views_vs_jax_top2(views, monkeypatch):
+    """The MMRI encoder at 6 views against JAX, both with the same view
+    settings: ``top2``, JAX at its defaults (top-2 views for the I2P keys
+    and for the BEVWarp scatter) against ``i2p_views=warp_views=2``;
+    ``all``, JAX in its all-view form (``DI_I2P_VIEWS=0`` /
+    ``DI_WARP_VIEWS=0``) against the port's all-view arguments. The forms
+    differ only for a pillar whose points reach three or more views: three
+    points are placed next to the ego, at z=0 so that the cameras' vertical
+    field of view holds them, in one pillar at azimuths 6, 30 and 87
+    degrees (views {0}, {0, 1}, {1, 2}), so that pillar sees three views
+    while each point sees at most two. Every output agrees at 1e-4, that
+    pillar's I2P output too."""
     import dataclasses
+
+    import deepinteraction_tpu.models.mmri_encoder as jmmri
 
     cfg = tiny_config()
     cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, num_views=6))
@@ -179,6 +186,17 @@ def test_mmri_encoder_six_views_vs_jax_top2(monkeypatch):
     img = rng.normal(size=(1, 6, h // 4, w // 4, c_img)).astype(np.float32)
     pts = rng.normal(size=(1, 16, 16, c_pts)).astype(np.float32)
 
+    if views == "all":
+        class AllViewsI2P(jmmri.MMRI_I2P):
+            n_views: int = 0
+
+        monkeypatch.setattr(jmmri, "MMRI_I2P", AllViewsI2P)
+        monkeypatch.setenv("DI_WARP_VIEWS", "0")
+    else:
+        monkeypatch.delenv("DI_WARP_VIEWS", raising=False)
+        assert jmmri.MMRI_I2P.n_views == 2
+    nv = 2 if views == "top2" else 0
+
     batch = _mmri_batch(cfg, to_torch(np_batch, "cpu"))
     jbatch = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
     pcr = cfg.model.pts_voxel_layer.point_cloud_range
@@ -190,7 +208,7 @@ def test_mmri_encoder_six_views_vs_jax_top2(monkeypatch):
     )(variables)
     want_i2p = np.asarray(state["intermediates"]["layer0"]["i2p"]["__call__"][0])
 
-    port = MMRIEncoder(ncfg, c_img, c_pts, pcr, (h, w)).eval()
+    port = MMRIEncoder(ncfg, c_img, c_pts, pcr, (h, w), i2p_views=nv, warp_views=nv).eval()
     load_flax(port, _np(variables))
     captured = {}
     port.layer0.i2p.register_forward_hook(lambda m, a, o: captured.setdefault("i2p", o))
@@ -203,35 +221,13 @@ def test_mmri_encoder_six_views_vs_jax_top2(monkeypatch):
     _, kmask = i2p_geometry(batch["pillars"], batch["pillar_counts"], batch["lidar2img"],
                             batch["lidar_aug_inv"], (h, w))
     p = batch["pillars"].shape[2]
-    views = kmask[0].reshape(-1, p, 6).any(1).sum(-1)  # [Kp]
-    coords = batch["pillar_coords"][0].long()
-    wide = torch.zeros(16, 16, dtype=torch.bool)
-    sel = batch["pillar_valid"][0] & (views >= 3)
-    wide[coords[sel, 1], coords[sel, 2]] = True
-    two = batch["pillar_valid"][0] & (views == 2)
+    seen = kmask[0].reshape(-1, p, 6).any(1).sum(-1)  # [Kp]
+    wide = batch["pillar_valid"][0] & (seen >= 3)
+    two = batch["pillar_valid"][0] & (seen == 2)
     assert int(two.sum()) > 0 and 0 < int(wide.sum()) < int(batch["pillar_valid"].sum()) // 4
+    coords = batch["pillar_coords"][0].long()[wide]
+    assert np.abs(want_i2p[0][coords[:, 1], coords[:, 2]]).max() > 0.1
 
-    keep = ~wide.numpy()
-    d = np.abs(captured["i2p"][0].numpy()[~keep] - want_i2p[0][~keep])
-    print(f"I2P at {int(wide.sum())} pillar(s) seen by 3+ views: max abs diff {d.max():.4e}, "
-          f"max rel {d.max() / np.abs(want_i2p[0][~keep]).max():.4e} (all views vs top-2)")
-    np.testing.assert_allclose(captured["i2p"][0].numpy()[keep], want_i2p[0][keep], rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(got_pts[0].numpy()[keep], want_pts[0][keep], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(captured["i2p"].numpy(), want_i2p, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_pts.numpy(), want_pts, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got_img.numpy(), want_img, rtol=1e-4, atol=1e-4)
-
-    # JAX with all views (DI_I2P_VIEWS=0 / DI_WARP_VIEWS=0) is the port's form
-    import deepinteraction_tpu.models.mmri_encoder as jmmri
-
-    class AllViewsI2P(jmmri.MMRI_I2P):
-        n_views: int = 0
-
-    monkeypatch.setattr(jmmri, "MMRI_I2P", AllViewsI2P)
-    monkeypatch.setenv("DI_WARP_VIEWS", "0")
-    (all_img, (_, all_pts)), state = jax.jit(
-        lambda v: jm.apply(v, img, pts, jbatch, False, mutable=["intermediates"],
-                           capture_intermediates=lambda m, n: m.name == "i2p")
-    )(variables)
-    all_i2p = np.asarray(state["intermediates"]["layer0"]["i2p"]["__call__"][0])
-    np.testing.assert_allclose(captured["i2p"].numpy(), all_i2p, rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(got_pts.numpy(), all_pts, rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(got_img.numpy(), all_img, rtol=1e-4, atol=1e-4)

@@ -50,7 +50,7 @@ def test_port_imports_without_jax():
                 "data.gt_database", "data.anno_2d", "tools.train", "tools.benchmark", "tools.create_data",
                 "parallel.mesh", "parallel.input", "utils.fuse_bn", "tools.ensemble", "tools.misc_tools",
                 "tools.analyze_logs", "data.native", "data.extra_transforms", "ops.flops", "tools.get_flops",
-                "tools.trace_model", "tools.analyze_trace"):
+                "tools.trace_model", "tools.analyze_trace", "levers", "tools.gate_eval"):
         assert f"deepinteraction_tpu_torch.{new}" in mods, new
     code = (
         "import runpy, sys\n"

@@ -10,9 +10,10 @@ JAX package, on the CPU.
   ``model.apply`` on every head (rtol 2e-3, atol 5e-4; labels and on-image
   masks exactly), and ``PolarI2P``, ``FusionTransformerPP`` and the V2
   decoder each fed the inputs its Flax module saw inside that JAX forward,
-  at 1e-4. The JAX ++ neck runs in its all-view form (I2P keys from every
-  view, the BEVWarp scatter over every view), which is the port's, by
-  patching the ``MMRI_I2P`` it binds and ``DI_WARP_VIEWS`` here. Two cases:
+  at 1e-4. Both packages' I2P and BEVWarp run at their shipped view
+  settings (two views a pillar and a point) and in their all-view form
+  (patching the ``MMRI_I2P`` the JAX neck binds, and ``DI_I2P_VIEWS`` /
+  ``DI_WARP_VIEWS``); with each, two cases:
   the Flax init's weights (the init program ``tests/test_golden_regression.py``
   compiles, so the compile cache is shared) on the synthetic batch, whose
   narrow views see too few queries for an image block to refine any; and
@@ -189,30 +190,37 @@ def _wide_cameras(np_batch, cfg, focal_frac=0.1, roll=0.15):
 
 @pytest.fixture(scope="module")
 def jax_pp():
-    """The tiny ++ JAX detector, its init (the golden test's program) and
-    one jitted apply that captures the module outputs the module tests feed."""
+    """The tiny ++ JAX detector, its init (the golden test's program), the
+    synthetic batch, and a jitted apply for each view setting that captures
+    the module outputs the module tests feed (traced by its first call,
+    under its setting)."""
     cfg = jax_tiny_pp_config()
     np_batch = jax_batch(cfg, b=1, with_gt=True, seed=7)
     model = JaxDeepInteraction(cfg.model, cfg.data.padded_img_shape)
     variables = jax.jit(lambda r, b: model.init(r, b, False))(
         jax.random.PRNGKey(7), {k: jnp.asarray(v) for k, v in np_batch.items()})
-    apply = jax.jit(lambda v, b: model.apply(
+    applies = {views: jax.jit(lambda v, b: model.apply(
         v, b, False, mutable=["intermediates"],
         capture_intermediates=lambda m, n: m.name in CAPTURED and n == "__call__",
-    ))
-    return cfg, model, np_batch, variables, apply
+    )) for views in ("shipped", "all")}
+    return cfg, model, np_batch, variables, applies
 
 
-@pytest.fixture(scope="module", params=["init", "wide"])
+@pytest.fixture(scope="module", params=[("init", "shipped"), ("init", "all"), ("wide", "shipped"), ("wide", "all")],
+                ids=lambda p: "-".join(p))
 def tiny_pp(request, jax_pp):
     """JAX and the port on one case: ``init``, the Flax init's weights on
     the synthetic batch (whose narrow views see few queries); ``wide``, the
     ``fast_init_variables`` weights (the port's ``init_weights``) on the
     batch with :func:`_wide_cameras`, where queries land on the images,
-    move between the MMPI layers and leave them. The JAX ++ neck runs in
-    its all-view form."""
-    cfg, model, np_batch, variables, apply = jax_pp
-    if request.param == "wide":
+    move between the MMPI layers and leave them. Both packages' I2P and
+    BEVWarp at their shipped view settings (``shipped``: two views a
+    pillar and a point) or over every view (``all``: JAX's ``n_views`` 0
+    through a subclass of the ``MMRI_I2P`` its neck binds, and
+    ``DI_I2P_VIEWS=0`` / ``DI_WARP_VIEWS=0``, which the port reads when it
+    is built), each with its own jitted apply."""
+    (case, views), (cfg, model, np_batch, variables, applies) = request.param, jax_pp
+    if case == "wide":
         np_batch = _wide_cameras(np_batch, cfg)
         variables = fast_init_variables(model, {k: jnp.asarray(v) for k, v in np_batch.items()}, seed=7)
 
@@ -220,15 +228,22 @@ def tiny_pp(request, jax_pp):
         n_views: int = 0
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jfusion, "MMRI_I2P", AllViewsI2P)
-        mp.setenv("DI_WARP_VIEWS", "0")
-        preds, state = apply(variables, {k: jnp.asarray(v) for k, v in np_batch.items()})
+        if views == "all":
+            mp.setattr(jfusion, "MMRI_I2P", AllViewsI2P)
+            mp.setenv("DI_I2P_VIEWS", "0")
+            mp.setenv("DI_WARP_VIEWS", "0")
+        else:
+            mp.delenv("DI_I2P_VIEWS", raising=False)
+            mp.delenv("DI_WARP_VIEWS", raising=False)
+            assert jfusion.MMRI_I2P.n_views == 2
+        preds, state = applies[views](variables, {k: jnp.asarray(v) for k, v in np_batch.items()})
+        port = DeepInteraction(cfg.model, cfg.data.padded_img_shape).eval()
+    assert port.levers.i2p_views == port.levers.warp_views == (2 if views == "shipped" else 0)
     inter = _np(state["intermediates"])
 
-    port = DeepInteraction(cfg.model, cfg.data.padded_img_shape).eval()
     load_flax(port, _np(variables))
     tb = to_torch(np_batch, "cpu")
-    return dict(case=request.param, cfg=cfg, variables=_np(variables), preds=_np(preds), inter=inter,
+    return dict(case=case, cfg=cfg, variables=_np(variables), preds=_np(preds), inter=inter,
                 port=port, batch=tb, port_preds=port(tb))
 
 

@@ -6,10 +6,10 @@ JAX package, on the CPU.
   widened (``_wide_cameras`` of ``tests/test_torch_port_pp.py``, so that
   queries land on the images and the image path carries gradient), both in
   float64 for the reason ``tests/test_torch_port_fusion_train.py`` gives
-  (ReLU inputs within fp32 rounding of 0 in the DynamicConv blocks). The
-  JAX ++ neck runs in its all-view form, the port's only form (the
-  ``AllViewsI2P`` and ``DI_WARP_VIEWS=0`` patch of
-  ``tests/test_torch_port_pp.py``), and its dropout is 0 on both sides
+  (ReLU inputs within fp32 rounding of 0 in the DynamicConv blocks). Both
+  packages' I2P and BEVWarp run at their shipped view settings and in
+  their all-view form (the patch of ``tests/test_torch_port_pp.py``), and
+  the neck's dropout is 0 on both sides
   (JAX and torch draw from different generators; JAX's deformable
   attentions, built at their default rate, through a patched subclass): the Hungarian
   assignment of every MMPI layer exactly, each loss term and ``grad_norm``
@@ -33,7 +33,7 @@ JAX package, on the CPU.
   all, from the same generator state (1e-6); a checkpoint that does not
   restore the generator gives other gradients.
 
-The JAX step is compiled once for the module.
+The JAX step is compiled once for each view setting.
 """
 
 import dataclasses
@@ -131,11 +131,16 @@ def _assert_grads(got, want):
     return zeros
 
 
-@pytest.fixture(scope="module")
-def pp_step():
-    """One JAX ``make_train_step`` step of the tiny ++ model in float64 (the
-    all-view neck, dropout 0) with its Hungarian outputs recorded, and the
-    port's float64 backward on the same weights and batch."""
+@pytest.fixture(scope="module", params=["shipped", "all"])
+def pp_step(request):
+    """One JAX ``make_train_step`` step of the tiny ++ model in float64
+    (dropout 0) with its Hungarian outputs recorded, and the port's float64
+    backward on the same weights and batch; both packages' I2P and BEVWarp
+    at their shipped view settings (``shipped``: two views a pillar and a
+    point) or over every view (``all``: JAX's ``n_views`` 0 through a
+    subclass of the ``MMRI_I2P`` its neck binds, and ``DI_I2P_VIEWS=0`` /
+    ``DI_WARP_VIEWS=0``, which the port reads when it is built)."""
+    views = request.param
     cfg = _neck_dropout(jcfg.tiny_pp_config(), 0.0)
     model = JaxDeepInteraction(cfg.model, cfg.data.padded_img_shape)
     np_batch = _wide_cameras(jax_batch(cfg, b=2, with_gt=True, seed=SEED), cfg)
@@ -158,14 +163,21 @@ def pp_step():
     jhung._lap_host = recording_lap  # read when hungarian_assign is traced
     try:
         with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
-            mp.setattr(jfusion, "MMRI_I2P", AllViewsI2P)
+            if views == "all":
+                mp.setattr(jfusion, "MMRI_I2P", AllViewsI2P)
+                mp.setenv("DI_I2P_VIEWS", "0")
+                mp.setenv("DI_WARP_VIEWS", "0")
+            else:
+                mp.delenv("DI_I2P_VIEWS", raising=False)
+                mp.delenv("DI_WARP_VIEWS", raising=False)
+                assert jfusion.MMRI_I2P.n_views == 2
             mp.setattr(jfusion, "MSDeformableAttention", NoDropoutMSDA)
-            mp.setenv("DI_WARP_VIEWS", "0")
             batch = {k: jnp.asarray(v) for k, v in _f64(np_batch).items()}
             state = create_train_state(cfg, _f64(variables), TOTAL_STEPS)
             new_state, metrics = jax.jit(make_train_step(cfg, model, TOTAL_STEPS))(
                 state, batch, jax.random.PRNGKey(0))
             new_state, metrics = _np(new_state), _np(metrics)
+            port, step, port_batch = _port_step(variables, np_batch, _port_cfg())
     finally:
         jhung._lap_host = lap_host
 
@@ -179,8 +191,8 @@ def pp_step():
     unclip = norm / max_norm if norm >= max_norm else 1.0
     jax_grads = jax.tree_util.tree_map(lambda m: m / (1.0 - b1) * unclip, adam[0].mu)
 
-    port, step, batch = _port_step(variables, np_batch, _port_cfg())
-    port_metrics, targets = step.backward(batch, torch.Generator().manual_seed(0))
+    assert port.levers.i2p_views == port.levers.warp_views == (2 if views == "shipped" else 0)
+    port_metrics, targets = step.backward(port_batch, torch.Generator().manual_seed(0))
     return dict(laps=laps, metrics=metrics, new_state=new_state, jax_grads=jax_grads, variables=variables,
                 np_batch=np_batch, port=port, port_metrics=port_metrics, targets=targets,
                 port_grads={n: p.grad.clone() for n, p in port.named_parameters() if p.grad is not None},

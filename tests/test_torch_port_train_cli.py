@@ -39,6 +39,7 @@ import torch
 from deepinteraction_tpu_torch.configs import apply_overrides, tiny_lidar_config
 from deepinteraction_tpu_torch.data import DataLoader, NuScenesDataset
 from deepinteraction_tpu_torch.data.nuscenes_converter import create_nuscenes_infos
+from deepinteraction_tpu_torch.levers import EvalLevers
 from deepinteraction_tpu_torch.models.detector import DeepInteraction
 from deepinteraction_tpu_torch.ops.images import to_device
 from deepinteraction_tpu_torch.tools import benchmark, get_flops, trace_model, train
@@ -175,6 +176,7 @@ def test_train_cli_eval_log(trees, run):
     for k, v in res["metrics"].items():
         assert rows[0][k] == pytest.approx(v, rel=1e-6, abs=1e-9), k
     assert summary["eval_launches"] == summary["launches"] == dict.fromkeys(train.launch_counts(), 0)
+    assert EvalLevers(**summary["levers"]) == EvalLevers.from_env()  # the settings the model resolved
 
 
 @pytest.mark.parametrize("mode", ["eval", "train"])
@@ -186,6 +188,7 @@ def test_benchmark_cli_prints_its_json_line(mode, capsys):
     assert last["mode"] == mode and last["device"] == "cpu" and last["distinct_batches"] == 2
     assert last["ms_per_iter_mean"] > 0 and last["ms_per_iter_median"] > 0 and last["first_iter_s"] > 0
     assert ("steps_per_s" if mode == "train" else "frames_per_s") in last
+    assert EvalLevers(**last["levers"]) == EvalLevers.from_env()
 
 
 @pytest.mark.parametrize("cli", ["train", "benchmark", "get_flops", "trace_model"])
