@@ -227,6 +227,33 @@ does by default. Then:
     -m deepinteraction_tpu_torch.tools.gate_eval fusion_base --gates parity
     default`` on phase 19's tree and checkpoint, its tables printed.
 
+The eleventh is the JAX package's on-device matching (``model.assigner.
+lap_impl=auction``, ``ops/hungarian.py``) and its bf16 I2P keys
+(``DI_I2P_DTYPE``):
+
+28. the auction kernel (``csrc/auction_lap.cu``) on the [2, 4, 200, 200]
+    costs and ``num_gt`` of the ``fusion_base`` B=2 train step (phase 13's
+    weights and batch, rebuilt) and on a uniform(0, 10) 200 x 200 cost with
+    30 GTs: assignment and rounds equal to the plain version's on the card
+    exactly, every valid column assigned once, the objective within
+    1.1 eps G of scipy's (eps = 1e-3 of the cost scale), two calls the
+    same bits; its time against the plain version and the callback path
+    (``.cpu()``, scipy, ``.to(dev)``, fenced) and its rounds a problem;
+    three ``fusion_base`` B=2 train steps with ``lap_impl=auction`` through
+    ``TrainStep`` with the launch counters set to 0 just before and read
+    just after (one ``auction_lap`` a step), finite losses, the first
+    step's losses equal to the callback step's on the same weights and
+    batch wherever the two matchings agree, how many of the 8 problems a
+    step differ from scipy and by how much objective, and ms/step against
+    the callback step in turns; ``tools.train fusion_base --cfg-options
+    model.assigner.lap_impl=auction`` over phase 21's tree for one epoch in
+    its own process (``lap_impl`` and the auction's launches in its
+    summary, finite losses in its log); one realistic ``fusion_base``
+    frame (phase 19's first) from phase 19's checkpoint with
+    ``i2p_dtype=bfloat16`` (``EvalLevers``) beside the defaults: K1 and K2
+    launches, ms/frame, peak memory and the heads' distance to the fp32
+    frame.
+
 Record and replay of ReLU masks, sort orders, dropout masks, sampling
 positions, boxes and L1 signs span the whole forward and backward (:func:`step_grads` wraps
 ``TrainStep.backward``), so the calls that the backward's recompute of the
@@ -278,7 +305,7 @@ from deepinteraction_tpu_torch.models import mmri_encoder, sparse_encoder
 from deepinteraction_tpu_torch.models.detector import DeepInteraction
 from deepinteraction_tpu_torch.data import extra_transforms as xt
 from deepinteraction_tpu_torch.data import native, pipeline
-from deepinteraction_tpu_torch.ops import cuda_lib, flops, jpeg
+from deepinteraction_tpu_torch.ops import cuda_lib, flops, hungarian, jpeg
 from deepinteraction_tpu_torch.ops.images import prepare_images, to_device
 from deepinteraction_tpu_torch.ops.nms import nms_keep
 from deepinteraction_tpu_torch.ops import local_attention as la
@@ -380,12 +407,23 @@ TRANSFORM_TOL = 1e-3
 # Phase 26: the launches a traced fusion_base eval run must show (phase 7's
 # counts a frame)
 TRACE_LAUNCHES = {"subm_conv_gemm": 21, "local_attn_fwd": 6}
+# every kernel wrapper's launch counter; at the default lap_impl=callback
+# no path but phase 28's launches the auction
+COUNTED = (smc.subm_conv_gemm, smc.subm_conv_dgrad, smc.subm_conv_wgrad, la.local_attn_fwd, la.local_attn_bwd,
+           hungarian.auction_lap)
 # Phase 27: top-2 views against all views over pillars that at most two
 # views see, and the key dedupe against nearest over pillars whose views
 # hold at most LEVER_DEDUPE distinct pixels: the same keys in another order
 # (or once with a log-count bias), so rounding apart; of scale
 LEVER_TOL = 1e-4
 LEVER_DEDUPE = 8
+# Phase 28: the auction's objective against scipy's, within GAP x eps x G
+# (eps = 1e-3 of the problem's cost scale; the bound holds in exact
+# arithmetic, the 10 % covers the float32 prices); the first auction train
+# step's loss terms against the callback step's where the matchings agree
+# (the same forward and the same targets: rounding apart)
+AUCTION_EPS, AUCTION_GAP = 1e-3, 1.1
+AUCTION_LOSS_RTOL = 1e-6
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(REPO, "deepinteraction_tpu_torch", "fixtures")
 SMOKE_DIR = os.path.join(REPO, "work_dirs", "chip_smoke")  # listed in .gitignore; removed after the run
@@ -1103,18 +1141,17 @@ def run_fusion_train(dev, gen):
     init_weights(model, seed=0)
     start = copy.deepcopy(model.state_dict())
     step = TrainStep(cfg, model, 1000, device=dev)
-    counted = (smc.subm_conv_gemm, smc.subm_conv_dgrad, smc.subm_conv_wgrad, la.local_attn_fwd, la.local_attn_bwd)
-    for c in counted:
+    for c in COUNTED:
         c.launches = 0
     metrics, targets, grads = step_grads(step, batch, seed=1)
     torch.cuda.synchronize()
-    launches = {c.__name__: c.launches for c in counted}
+    launches = {c.__name__: c.launches for c in COUNTED}
     log(f"fusion_base train step launches, B={b}: {launches}")
     # the LiDAR branch is frozen: K1 runs forward only (21 convs a sample);
     # K2 runs 3 blocks in each MMRI layer (6), forward and backward
     k2n = 3 * cfg.model.imgpts_neck.num_layers
     assert launches == {"subm_conv_gemm": 21 * b, "subm_conv_dgrad": 0, "subm_conv_wgrad": 0,
-                        "local_attn_fwd": k2n, "local_attn_bwd": k2n}, launches
+                        "local_attn_fwd": k2n, "local_attn_bwd": k2n, "auction_lap": 0}, launches
     for k, v in metrics.items():
         assert torch.isfinite(v).all(), f"non-finite {k}"
     trainable = {n for n, q in model.named_parameters() if q.requires_grad}
@@ -1283,7 +1320,6 @@ def run_pp(dev):
     model = DeepInteraction(cfg.model, cfg.data.padded_img_shape, p).to(dev).eval()
     init_weights(model, seed=0)
     batch = to_torch(make_synthetic_batch(cfg, b=1, seed=0), dev)
-    counted = (smc.subm_conv_gemm, smc.subm_conv_dgrad, smc.subm_conv_wgrad, la.local_attn_fwd, la.local_attn_bwd)
 
     # the trunks' outputs, compared beside the heads
     trunks = ("pts_middle_encoder", "img_neck", "imgpts_neck")
@@ -1291,16 +1327,16 @@ def run_pp(dev):
     hooks = [model.get_submodule(n).register_forward_hook(lambda m, a, o, n=n: captured.__setitem__(n, o))
              for n in trunks]
     orders, flips = [], []
-    for c in counted:
+    for c in COUNTED:
         c.launches = 0
     with sort_orders(orders, False, flips):
         preds = model(batch)
     torch.cuda.synchronize()
-    launches = {c.__name__: c.launches for c in counted}
+    launches = {c.__name__: c.launches for c in COUNTED}
     kern = dict(captured)
     log(f"fusion_plusplus eval launches per frame: {launches}")
     assert launches == {"subm_conv_gemm": 21, "subm_conv_dgrad": 0, "subm_conv_wgrad": 0,
-                        "local_attn_fwd": 0, "local_attn_bwd": 0}, launches
+                        "local_attn_fwd": 0, "local_attn_bwd": 0, "auction_lap": 0}, launches
     det = get_bboxes(preds, cfg.model.pts_bbox_head, cfg.model.bbox_coder, p)
     for name, t in list(preds.items()) + list(det._asdict().items()):
         assert torch.isfinite(t.float()).all(), f"non-finite {name}"
@@ -1421,17 +1457,16 @@ def run_pp_train(dev):
     init_weights(model, seed=0)
     start = copy.deepcopy(model.state_dict())
     step = TrainStep(cfg, model, 1000, device=dev)
-    counted = (smc.subm_conv_gemm, smc.subm_conv_dgrad, smc.subm_conv_wgrad, la.local_attn_fwd, la.local_attn_bwd)
 
-    for c in counted:
+    for c in COUNTED:
         c.launches = 0
     metrics, targets, grads = step_grads(step, batch, seed=1)
     torch.cuda.synchronize()
-    launches = {c.__name__: c.launches for c in counted}
+    launches = {c.__name__: c.launches for c in COUNTED}
     log(f"fusion_plusplus train step launches, B={b}: {launches}")
     # both branches frozen: K1 runs forward only, 21 convs a sample; no K2
     assert launches == {"subm_conv_gemm": 21 * b, "subm_conv_dgrad": 0, "subm_conv_wgrad": 0,
-                        "local_attn_fwd": 0, "local_attn_bwd": 0}, launches
+                        "local_attn_fwd": 0, "local_attn_bwd": 0, "auction_lap": 0}, launches
     for k, v in metrics.items():
         assert torch.isfinite(v).all(), f"non-finite {k}"
     trainable = {n for n, q in model.named_parameters() if q.requires_grad}
@@ -1657,12 +1692,11 @@ def run_eval_cli(dev, gen):
     # PyTorch's defaults, as a user's process starts: the CLI sets fp32
     # (no TF32) and cuDNN autotuning itself
     torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark = True, False
-    counted = (smc.subm_conv_gemm, smc.subm_conv_dgrad, smc.subm_conv_wgrad, la.local_attn_fwd, la.local_attn_bwd)
-    for c in counted:
+    for c in COUNTED:
         c.launches = 0
     res = test_cli.main(argv)
     torch.cuda.synchronize()
-    launches = {c.__name__: c.launches for c in counted}
+    launches = {c.__name__: c.launches for c in COUNTED}
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark)
     log(f"eval CLI from PyTorch's defaults: matmul TF32, cuDNN TF32, cuDNN autotuning = {flags}")
     assert flags == (False, False, True), flags
@@ -1674,7 +1708,7 @@ def run_eval_cli(dev, gen):
     # K1: 21 convs a sample; K2: 3 local attentions an MMRI layer, batched
     k2_per_batch = 3 * cfg.model.imgpts_neck.num_layers
     assert launches == {"subm_conv_gemm": 21 * bsz * n_batches, "subm_conv_dgrad": 0, "subm_conv_wgrad": 0,
-                        "local_attn_fwd": k2_per_batch * n_batches, "local_attn_bwd": 0}, launches
+                        "local_attn_fwd": k2_per_batch * n_batches, "local_attn_bwd": 0, "auction_lap": 0}, launches
     for det in res["detections"]:
         for name, t in det._asdict().items():
             assert torch.isfinite(t.float()).all(), f"non-finite {name}"
@@ -1883,7 +1917,7 @@ def run_train_cli(dev, ckpt: str, measured: dict) -> tuple:
     log(f"train CLI lidar_only: --profile-steps 2 wrote {trace} ({os.path.getsize(trace)} bytes); "
         f"kernel launches {lidar['launches']}")
     per_step = {"subm_conv_gemm": 42, "subm_conv_dgrad": 40, "subm_conv_wgrad": 42, "local_attn_fwd": 0,
-                "local_attn_bwd": 0}
+                "local_attn_bwd": 0, "auction_lap": 0}
     assert lidar["launches"] == {k: v * lidar["steps"] for k, v in per_step.items()}, lidar
     assert lidar["steps"] == steps, lidar
 
@@ -1903,10 +1937,10 @@ def run_train_cli(dev, ckpt: str, measured: dict) -> tuple:
     assert epochs == [0] * steps + [1] * steps, epochs
     assert [e["epoch"] for e in evals] == [0, 1] and all(np.isfinite(e["NDS"]) for e in evals), evals
     fusion_step = {"subm_conv_gemm": 42, "subm_conv_dgrad": 0, "subm_conv_wgrad": 0, "local_attn_fwd": 6,
-                   "local_attn_bwd": 6}
+                   "local_attn_bwd": 6, "auction_lap": 0}
     batches = -(-len(infos["val"]) // cfg.data.samples_per_device)
     eval_batch = {"subm_conv_gemm": 42, "subm_conv_dgrad": 0, "subm_conv_wgrad": 0, "local_attn_fwd": 6,
-                  "local_attn_bwd": 0}
+                  "local_attn_bwd": 0, "auction_lap": 0}
     for run in (fusion, resumed):
         assert run["launches"] == {k: v * steps for k, v in fusion_step.items()}, run
         assert run["eval_launches"] == {k: v * batches for k, v in eval_batch.items()}, run
@@ -1927,7 +1961,7 @@ def run_train_cli(dev, ckpt: str, measured: dict) -> tuple:
         log(f"benchmark CLI fusion_base {label} ({wall:.1f} s in its own process): " + json.dumps(rec))
         b = int(args[args.index("--batch") + 1])
         want = {"subm_conv_gemm": 21 * b, "subm_conv_dgrad": 0, "subm_conv_wgrad": 0, "local_attn_fwd": 6,
-                "local_attn_bwd": 6 if "--train" in args else 0}
+                "local_attn_bwd": 6 if "--train" in args else 0, "auction_lap": 0}
         assert rec["launches"] == {k: v * REPS for k, v in want.items()}, (label, rec["launches"])
     log(f"benchmark CLI beside this process (logged, not asserted; the host moves these 20-40 %): eval B=1 "
         f"{bench['eval, synthetic, B=1']['ms_per_iter_median']:.3f} ms/frame synthetic, "
@@ -2260,21 +2294,20 @@ def run_levers(dev, paths: dict, smi: str) -> dict:
         return [neck.layer0.i2p.register_forward_hook(lambda m, a, o: store.__setitem__("i2p", o)),
                 neck.register_forward_pre_hook(lambda m, a: store.update(img=a[0], mb=a[2]))]
 
-    counted = (smc.subm_conv_gemm, smc.subm_conv_dgrad, smc.subm_conv_wgrad, la.local_attn_fwd, la.local_attn_bwd)
     default = build(levers)
     ref = {}
     hooks = with_i2p(default, ref)
     orders, flips = [], []
-    for c in counted:
+    for c in COUNTED:
         c.launches = 0
     with sort_orders(orders, False, flips):
         preds = default(batch)
     torch.cuda.synchronize()
-    launches = {c.__name__: c.launches for c in counted}
+    launches = {c.__name__: c.launches for c in COUNTED}
     log(f"fusion_base eval at the JAX defaults {levers} on phase 19's first realistic frame, B=1: launches "
         f"{launches}")
     assert launches == {"subm_conv_gemm": 21, "subm_conv_dgrad": 0, "subm_conv_wgrad": 0, "local_attn_fwd": 6,
-                        "local_attn_bwd": 0}, launches
+                        "local_attn_bwd": 0, "auction_lap": 0}, launches
     for h in hooks:
         h.remove()
     with plain_kernels(), sort_orders(orders, True, flips):
@@ -2355,14 +2388,14 @@ def run_levers(dev, paths: dict, smi: str) -> dict:
         model = DeepInteraction(pcfg.model, pcfg.data.padded_img_shape, pcfg.test_num_proposals,
                                 levers=lv).to(dev).eval()
         init_weights(model, seed=0)
-        for c in counted:
+        for c in COUNTED:
             c.launches = 0
         pp[name] = model(pbatch)
         torch.cuda.synchronize()
         if name == "defaults":
-            pp_launches = {c.__name__: c.launches for c in counted}
+            pp_launches = {c.__name__: c.launches for c in COUNTED}
             assert pp_launches == {"subm_conv_gemm": 21, "subm_conv_dgrad": 0, "subm_conv_wgrad": 0,
-                                   "local_attn_fwd": 0, "local_attn_bwd": 0}, pp_launches
+                                   "local_attn_fwd": 0, "local_attn_bwd": 0, "auction_lap": 0}, pp_launches
         pp[name + " ms"] = frame_ms(model, pbatch, pcfg, pcfg.test_num_proposals)
         del model
     log(f"fusion_plusplus eval + get_bboxes at the JAX defaults (joint top-4 MSDA), realistic frame, B=1 ({smi}): "
@@ -2395,6 +2428,205 @@ def run_levers(dev, paths: dict, smi: str) -> dict:
         + "\n".join(table))
     log(f"phase 27 took {time.perf_counter() - t_start:.1f} s")
     return {"fusion_base": launches, "fusion_plusplus": pp_launches}
+
+
+def host_ms(fn, n: int = 5) -> float:
+    """Median host-clock ms of ``n`` calls of ``fn``, each fenced by
+    ``torch.cuda.synchronize()``, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+@contextlib.contextmanager
+def recorded_matching(calls: list):
+    """Record each ``build_targets`` matching: (cost, num_gt, assignment)."""
+    real = assign.hungarian_assign
+
+    def record(cost, num_gt, impl="callback"):
+        out = real(cost, num_gt, impl=impl)
+        calls.append((cost.detach().clone(), num_gt.detach().clone(), out.clone()))
+        return out
+
+    assign.hungarian_assign = record
+    try:
+        yield
+    finally:
+        assign.hungarian_assign = real
+
+
+def scipy_gaps(cost: torch.Tensor, num_gt: torch.Tensor, got: torch.Tensor) -> list:
+    """Per problem of [..., P, G] costs: (auction objective - scipy's, eps *
+    G, whether the assignments are equal), asserting every valid column
+    assigned once."""
+    c32 = cost.reshape(-1, *cost.shape[-2:]).float().cpu().numpy()
+    c = c32.astype(np.float64)
+    ng = num_gt.reshape(-1).expand(c.shape[0]).cpu().numpy()
+    a = got.reshape(-1, cost.shape[-2]).cpu().numpy()
+    ref = hungarian.lap_host(c32, ng)  # the callback path's matching
+    out = []
+    for ci, ai, ri, n in zip(c, a, ref, ng):
+        assert sorted(ai[ai >= 0].tolist()) == list(range(n)), "a valid column unassigned or assigned twice"
+        rows, sci = np.nonzero(ai >= 0)[0], np.nonzero(ri >= 0)[0]
+        eps = AUCTION_EPS * max(np.abs(ci[:, :n]).max() if n else 0.0, 1e-6)
+        out.append((ci[rows, ai[rows]].sum() - ci[sci, ri[sci]].sum(), eps * n, bool((ai == ri).all())))
+    return out
+
+
+def run_auction(dev, paths: dict, train_pkl: str, metric_keys: set, smi: str) -> tuple:
+    """Phase 28: the auction kernel against its plain version and scipy,
+    the ``fusion_base`` train step and the train CLI with
+    ``lap_impl=auction``, and a realistic frame with bf16 I2P keys. Returns
+    (the kernel's JSON record, {path: launches})."""
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = fusion_base_config()
+    b = cfg.data.samples_per_device
+    batch = to_torch(make_synthetic_batch(cfg, b=b, seed=0, with_gt=True), dev)
+    model = DeepInteraction(cfg.model, cfg.data.padded_img_shape).to(dev)
+    init_weights(model, seed=0)
+    start = copy.deepcopy(model.state_dict())
+    callback_step = TrainStep(cfg, model, 1000, device=dev)
+    calls = []
+    with recorded_matching(calls):
+        cb_metrics, cb_targets = callback_step.backward(batch, torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    (step_cost, step_ng, _), = calls
+    rng = np.random.default_rng(5)
+    cases = {"fusion_base train step costs": (step_cost.reshape(-1, *step_cost.shape[-2:]).contiguous(),
+                                              step_ng.reshape(-1).to(torch.int32).contiguous()),
+             "uniform(0, 10) 200 x 200, 30 GTs": (
+                 torch.from_numpy(rng.uniform(0, 10, size=(1, 200, 200)).astype(np.float32)).to(dev),
+                 torch.tensor([30], dtype=torch.int32, device=dev))}
+    rec = None
+    for name, (c, ng) in cases.items():
+        got, rounds = hungarian.auction_lap(c, ng)
+        again, rounds_again = hungarian.auction_lap(c, ng)
+        want, want_rounds = hungarian.auction_assign_plain(c, ng, with_rounds=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(rounds, want_rounds), (name, rounds, want_rounds)
+        assert torch.equal(again, got) and torch.equal(rounds_again, rounds), name
+        gaps = scipy_gaps(c, ng, got)
+        assert all(gap <= AUCTION_GAP * bound for gap, bound, _ in gaps), (name, gaps)
+        n, p, g = c.shape
+        bd = bound(4 * (n * p * g + n + n * p + n), 0, "fp32")
+        ms = device_time_ms(lambda: hungarian.auction_lap(c, ng))
+        plain_ms = host_ms(lambda: hungarian.auction_assign_plain(c, ng), 3)
+        callback_ms = host_ms(lambda: hungarian.hungarian_assign(c, ng, impl="callback"))
+        log(f"auction_lap, {name} [{n}, {p}, {g}], num_gt {ng.tolist()}: equal to the plain version (assignment "
+            f"and rounds) and twice the same bits; rounds a problem {rounds.tolist()}; {sum(e for *_, e in gaps)} "
+            f"of {n} equal to scipy's, objective - scipy's "
+            + ", ".join(f"{gap:.4g}" for gap, _, _ in gaps) + f" (bound {AUCTION_GAP} eps G: "
+            + ", ".join(f"{AUCTION_GAP * bnd:.4g}" for _, bnd, _ in gaps) + f"); kernel_ms={ms:.4f} (CUDA events) "
+            f"plain_ms={plain_ms:.3f} callback_ms={callback_ms:.3f} (host clock, fenced) bound_ms="
+            f"{bd['bound_ms']:.6f} ({bd['bound_by']}), {smi}")
+        if rec is None:  # the main path's shape
+            rec = {"shape": f"[{b}, {cfg.model.pts_bbox_head.num_mmpi}, {p}, {g}]", "ms": ms, "plain_ms": plain_ms,
+                   "callback_ms": callback_ms, **bd, "share": bd["bound_ms"] / ms, "max_abs_err": 0,
+                   "rounds": rounds.tolist()}
+
+    # three auction steps from the callback step's weights, counted
+    acfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, assigner=dataclasses.replace(cfg.model.assigner, lap_impl="auction")))
+    model.load_state_dict(start)
+    step = TrainStep(acfg, model, 1000, device=dev)
+    calls.clear()
+    for c in COUNTED:
+        c.launches = 0
+    with recorded_matching(calls):
+        metrics, targets = step.backward(batch, torch.Generator(device=dev).manual_seed(1))
+        step.update(metrics["grad_norm"])
+        later = [step(batch, torch.Generator(device=dev).manual_seed(2 + i)) for i in range(2)]
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in COUNTED}
+    k2n = 3 * cfg.model.imgpts_neck.num_layers
+    log(f"fusion_base train step, lap_impl=auction, B={b}, 3 steps: launches {launches}")
+    assert launches == {"subm_conv_gemm": 3 * 21 * b, "subm_conv_dgrad": 0, "subm_conv_wgrad": 0,
+                        "local_attn_fwd": 3 * k2n, "local_attn_bwd": 3 * k2n, "auction_lap": 3}, launches
+    for m in [metrics] + later:
+        assert all(torch.isfinite(v).all() for v in m.values()), m
+    assert torch.equal(calls[0][0], step_cost), "the auction step's first cost differs from the callback step's"
+    agree = (targets.assign == cb_targets.assign).flatten(2).all(-1).all(0)  # [L]: both samples of a layer
+    same = ["loss_heatmap"] + [f"layer_{li}_loss_{t}" for li in range(len(agree)) if agree[li] for t in ("cls", "bbox")]
+    if bool(agree.all()):
+        same += ["loss_total", "matched_ious"]
+    worst = max(rel_err(metrics[k], cb_metrics[k])[1] for k in same)
+    for i, (cost, ng, got) in enumerate(calls):
+        gaps = scipy_gaps(cost, ng, got)
+        assert all(gap <= AUCTION_GAP * bnd for gap, bnd, _ in gaps), (i, gaps)
+        log(f"auction step {i + 1}: {sum(not e for *_, e in gaps)} of {len(gaps)} problems differ from scipy's "
+            f"matching, objective - scipy's {', '.join(f'{gap:.4g}' for gap, _, _ in gaps)}; losses "
+            + " ".join(f"{k}={v.item():.6g}" for k, v in ([metrics] + later)[i].items()))
+    log(f"auction step 1 against the callback step on the same weights and batch: layers whose matching agrees "
+        f"{agree.tolist()}; {len(same)} loss terms compared, worst rel diff {worst:.3e} (tolerance "
+        f"{AUCTION_LOSS_RTOL})")
+    assert worst <= AUCTION_LOSS_RTOL, worst
+    times = {"callback": [], "auction": []}
+    for i in range(3):
+        for name, st in (("callback", callback_step), ("auction", step), ("auction", step), ("callback", callback_step)):
+            t0 = time.perf_counter()
+            m = st(batch, torch.Generator(device=dev).manual_seed(10 + i))
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            assert torch.isfinite(m["loss_total"]), (name, m)
+    log(f"fusion_base train step B={b}, in turns (callback, auction, auction, callback) x 3 ({smi}): ms/step median "
+        + ", ".join(f"{k} {statistics.median(v):.3f} (min {min(v):.3f}, max {max(v):.3f})" for k, v in times.items()))
+    rec.update(launches=launches["auction_lap"] // 3, step_ms={k: statistics.median(v) for k, v in times.items()})
+    del model, step, callback_step, start, calls, cases, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    work = os.path.join(SMOKE_DIR, "train_auction")
+    shutil.rmtree(work, ignore_errors=True)
+    summary, wall = run_cli("train", "fusion_base", "--infos", train_pkl, "--work-dir", work, "--cfg-options",
+                            "optim.log_interval_steps=1", "optim.total_epochs=1", "model.assigner.lap_impl=auction")
+    steps = summary["steps"]
+    assert summary["lap_impl"] == "auction", summary
+    assert summary["launches"] == {"subm_conv_gemm": 42 * steps, "subm_conv_dgrad": 0, "subm_conv_wgrad": 0,
+                                   "local_attn_fwd": 6 * steps, "local_attn_bwd": 6 * steps,
+                                   "auction_lap": steps}, summary
+    cli = read_train_run(work, summary, metric_keys, "fusion_base, 1 epoch, lap_impl=auction")
+    log(f"train CLI fusion_base --cfg-options model.assigner.lap_impl=auction ({wall:.1f} s in its own process): "
+        f"lap_impl {summary['lap_impl']}, {steps} steps, launches {summary['launches']}, ms/step "
+        f"{cli['ms_per_step']:.3f}")
+
+    # one realistic frame with bf16 I2P keys beside the defaults
+    p = cfg.test_num_proposals
+    host = next(DataLoader(NuScenesDataset(cfg, paths["val"], train=False), 1, num_workers=0).epoch(0, shuffle=False))
+    host.pop("pad_count"), host.pop("token")
+    frame = to_device(host, cfg.data, dev)
+    levers = EvalLevers.from_env()
+    models = {name: load_weights(paths["ckpt"], DeepInteraction(cfg.model, cfg.data.padded_img_shape, p,
+                                                                levers=lv).to(dev).eval())
+              for name, lv in (("float32", levers), ("bfloat16", dataclasses.replace(levers, i2p_dtype="bfloat16")))}
+    assert models["bfloat16"].imgpts_neck.layer0.i2p.key_dtype == torch.bfloat16
+    for c in COUNTED:
+        c.launches = 0
+    bf_preds = models["bfloat16"](frame)
+    torch.cuda.synchronize()
+    bf_launches = {c.__name__: c.launches for c in COUNTED}
+    assert bf_launches == {"subm_conv_gemm": 21, "subm_conv_dgrad": 0, "subm_conv_wgrad": 0, "local_attn_fwd": 6,
+                           "local_attn_bwd": 0, "auction_lap": 0}, bf_launches
+    preds = models["float32"](frame)
+    assert all(torch.isfinite(v.float()).all() for v in bf_preds.values())
+    timed = {name: frame_ms(m, frame, cfg, p) for name, m in models.items()}
+    log(f"fusion_base eval, realistic frame, B=1, I2P keys fp32 and bf16 ({smi}): launches {bf_launches}; ms/frame "
+        "and peak GiB " + "; ".join(f"{k} {ms:.3f} ({gib:.3f})" for k, (ms, gib) in timed.items())
+        + f"; heads of bf16 vs fp32: {head_deltas(bf_preds, preds)}")
+    del models, preds, bf_preds, frame
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 28 took {time.perf_counter() - t_start:.1f} s")
+    return rec, {f"fusion_base train step, lap_impl=auction, B={b}, 3 steps": launches,
+                 f"fusion_base train CLI (tools.train), lap_impl=auction, {steps} steps, B=2": summary["launches"],
+                 "fusion_base eval, DI_I2P_DTYPE=bfloat16, realistic frame, B=1": bf_launches}
 
 
 def main() -> int:
@@ -2438,6 +2670,7 @@ def main() -> int:
         run_host_side(dev, paths["val"])
         run_tools()
         lever_launches = run_levers(dev, paths, smi)
+        auction, auction_paths = run_auction(dev, paths, fusion_run["train_pkl"], measured["fusion_keys"], smi)
     finally:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
 
@@ -2453,7 +2686,8 @@ def main() -> int:
         return {eval_path: eval_n, train_path: train_launches.get(name, 0), fusion_path: fusion_launches[name],
                 pp_path: pp_launches[name], pp_train_path: pp_train_launches[name], cli_path: cli_launches[name],
                 **{path: counts[name] for path, counts in cli_paths.items()},
-                **{lever_paths[k]: counts[name] for k, counts in lever_launches.items()}}
+                **{lever_paths[k]: counts[name] for k, counts in lever_launches.items()},
+                **{path: counts[name] for path, counts in auction_paths.items()}}
 
     fwd = dict(k1["fwd"], shapes=k1_eval["shapes"] + k1["fwd"]["shapes"] + k1_real["shapes"],
                ms_per_frame=k1_eval["ms_per_frame"], ms_per_realistic_frame=k1_real["ms_per_frame"],
@@ -2481,6 +2715,10 @@ def main() -> int:
          "replaces": "deepinteraction_tpu/ops/local_attention_pallas.py:162", **headline(k2b, "[12, 112, 200, 128]"),
          "launches": fusion_launches["local_attn_bwd"], "path": fusion_path,
          "launches_by_path": by_path("local_attn_bwd"), "library_ms": None},
+        {"name": "auction_lap", "route": "cuda", "source": "deepinteraction_tpu_torch/csrc/auction_lap.cu",
+         "replaces": "deepinteraction_tpu/ops/hungarian.py:82", **auction,
+         "path": "fusion_base train step, lap_impl=auction, B=2", "launches_by_path": by_path("auction_lap"),
+         "library_ms": None},
     ]
     log(f"chip_smoke.py took {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -31,6 +31,10 @@ DI_DEPTH_FILL_LITE     0           2 dilation rounds, no median or
                                    bilateral pass (eval)
 DI_DENSE_BF16          0           ResNet, FPN, SECOND and SECONDFPN with
                                    bf16 activations (eval)
+DI_I2P_DTYPE           float32     I2P keys, their projections and the
+                                   attention's products in bf16, fp32
+                                   accumulation and softmax (both;
+                                   ``bfloat16`` is the other value)
 =====================  ==========  ========================================
 
 The JAX package's other ``DI_*`` names choose among TPU implementations of
@@ -53,6 +57,7 @@ ENV = {
     "DI_MSDA_EVAL_POINTS": ("msda_eval_points", "2"),
     "DI_DEPTH_FILL_LITE": ("depth_fill_lite", "0"),
     "DI_DENSE_BF16": ("dense_bf16", "0"),
+    "DI_I2P_DTYPE": ("i2p_dtype", "float32"),
 }
 
 
@@ -66,10 +71,13 @@ class EvalLevers:
     msda_eval_points: int = 2
     depth_fill_lite: bool = False
     dense_bf16: bool = False
+    i2p_dtype: str = "float32"
 
     def __post_init__(self):
         if self.i2p_sample not in ("nearest", "bilinear"):
             raise ValueError(f"i2p_sample must be 'nearest' or 'bilinear', not {self.i2p_sample!r}")
+        if self.i2p_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"i2p_dtype must be 'float32' or 'bfloat16', not {self.i2p_dtype!r}")
 
     @classmethod
     def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "EvalLevers":
@@ -93,7 +101,7 @@ class EvalLevers:
         """Every deviation off: the reference's math (the gate tool's
         ``PARITY`` set)."""
         return cls(i2p_sample="bilinear", i2p_views=0, warp_views=0, i2p_dedupe=0, msda_joint_points=0,
-                   msda_eval_points=0, depth_fill_lite=False, dense_bf16=False)
+                   msda_eval_points=0, depth_fill_lite=False, dense_bf16=False, i2p_dtype="float32")
 
     def as_env(self) -> dict:
         """The ``DI_*`` variables that give these settings."""

@@ -65,7 +65,7 @@ class DeepInteraction(nn.Module):
         self.num_proposals = num_proposals
         self.levers = lv = EvalLevers.from_env() if levers is None else levers
         neck_levers = dict(i2p_views=lv.i2p_views, i2p_sample=lv.i2p_sample, warp_views=lv.warp_views,
-                           depth_fill_lite=lv.depth_fill_lite)
+                           depth_fill_lite=lv.depth_fill_lite, i2p_dtype=lv.i2p_dtype)
         if not cfg.lidar_only:
             ib = cfg.img_backbone
             if ib.type == "resnet":

@@ -232,7 +232,8 @@ class FusionLayerPts(nn.Module):
     as a residual; ``self_feat + scale * cross_feat``."""
 
     def __init__(self, cfg: MMRIEncoderConfig, pc_range, input_shape, i2p_views: int = 0,
-                 i2p_sample: str = "bilinear", msda_joint_points: int = 0, msda_eval_points: int = 0):
+                 i2p_sample: str = "bilinear", msda_joint_points: int = 0, msda_eval_points: int = 0,
+                 i2p_dtype: str = "float32"):
         super().__init__()
         c = cfg.hidden_channel
         self.self_attn = MSDeformableAttention(c, cfg.num_heads, cfg.num_levels, cfg.deform_num_points,
@@ -245,7 +246,7 @@ class FusionLayerPts(nn.Module):
             self.norm1 = nn.LayerNorm(c)
         # JAX's ++ neck samples its keys per chunk (no hoisted geometry),
         # where the key dedupe does not apply
-        self.i2p = MMRI_I2P(c, i2p_views, i2p_sample)
+        self.i2p = MMRI_I2P(c, i2p_views, i2p_sample, dtype=i2p_dtype)
         self.norm2 = nn.LayerNorm(c)
         self.ffn0 = TransFFN(c, 4 * c, cfg.dropout)
         self.norm3 = nn.LayerNorm(c)
@@ -301,8 +302,8 @@ class FusionTransformerPP(nn.Module):
     """Returns (new_img [B, V, h0, w0, C], (pts_feat_conv, new_pts)).
 
     The JAX package's settings (``levers.py``) come in as arguments, each 0
-    or off by default (the reference's math): ``i2p_views`` and
-    ``i2p_sample`` for the pillar I2P and its geometry, ``warp_views`` and
+    or off by default (the reference's math): ``i2p_views``, ``i2p_sample``
+    and ``i2p_dtype`` for the pillar I2P and its geometry, ``warp_views`` and
     ``depth_fill_lite`` (eval only) for the BEVWarp grid, and the
     deformable attentions' ``msda_joint_points`` and ``msda_eval_points``
     (eval only)."""
@@ -310,7 +311,7 @@ class FusionTransformerPP(nn.Module):
     def __init__(self, cfg: MMRIEncoderConfig, cin_img: int, cin_pts: int, cin_pts_level: int,
                  pc_range: Tuple[float, ...], input_shape: Tuple[int, int], i2p_views: int = 0,
                  i2p_sample: str = "bilinear", warp_views: int = 0, depth_fill_lite: bool = False,
-                 msda_joint_points: int = 0, msda_eval_points: int = 0):
+                 msda_joint_points: int = 0, msda_eval_points: int = 0, i2p_dtype: str = "float32"):
         super().__init__()
         c = cfg.hidden_channel
         self.cfg, self.pc_range, self.input_shape = cfg, tuple(pc_range), tuple(input_shape)
@@ -321,7 +322,7 @@ class FusionTransformerPP(nn.Module):
         for i in range(cfg.num_layers):
             self.add_module(f"img_layer{i}", FusionLayerImg(cfg, msda_joint_points, msda_eval_points))
             self.add_module(f"pts_layer{i}", FusionLayerPts(cfg, pc_range, input_shape, i2p_views, i2p_sample,
-                                                            msda_joint_points, msda_eval_points))
+                                                            msda_joint_points, msda_eval_points, i2p_dtype))
 
     def forward(self, ms_img_feats: Sequence[torch.Tensor], pts_feats: Sequence[torch.Tensor],
                 batch: Dict[str, torch.Tensor], train: bool = False, generator=None):

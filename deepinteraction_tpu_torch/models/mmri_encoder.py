@@ -2,8 +2,8 @@
 
 - I2P keys come from every view, or from each pillar's top views
   (``i2p_views``), sampled bilinearly or, in eval, at the nearest pixel,
-  optionally deduplicated; over all pillars in one pass (no chunking) in
-  eval;
+  optionally deduplicated, in fp32 or bf16 (``i2p_dtype``); over all
+  pillars in one pass (no chunking) in eval;
 - the BEVWarp depth scatter runs over every view or each point's top
   views (``warp_views``), the closest depth winning
   (``scatter_reduce(amin)``), then the depth fill, exact or lite;
@@ -55,6 +55,8 @@ from .layers import Conv2d, ConvBNReLU
 
 # pillars per rematerialised I2P chunk in train mode (the JAX chunk size)
 I2P_CHUNK = 4096
+# the I2P key dtypes (DI_I2P_DTYPE)
+I2P_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class LocalContextAttentionBlock(nn.Module):
@@ -147,11 +149,25 @@ class MMRI_I2P(nn.Module):
     ``dedupe`` distinct pixels, in row order, and adds log(count) to their
     logits, which is exact while no (pillar, view) has more distinct
     pixels (softmax over a multiset is softmax over its distinct members
-    with log-multiplicity logits)."""
+    with log-multiplicity logits).
 
-    def __init__(self, c: int, n_views: int = 0, sample_mode: str = "bilinear", dedupe: int = 0):
+    ``dtype="bfloat16"`` (``DI_I2P_DTYPE``, train and eval) follows JAX's
+    dtype flow (``mmri_encoder.py:164-179``): the image features, and so
+    the sampled keys, are rounded to bf16; the key and value projections
+    run in bf16 with bf16 weights and biases (the product rounded, then the
+    bias added, as JAX does); the queries stay fp32 until they are rounded
+    to bf16 for the logits; the logits and the weighted sum of the values
+    take bf16 inputs (the attention weights rounded to bf16) and
+    accumulate in fp32, which the port computes by upcasting the bf16
+    inputs (a product of two bf16 values is exact in fp32, so this is
+    JAX's ``preferred_element_type=float32``); the softmax and the output
+    projection run in fp32."""
+
+    def __init__(self, c: int, n_views: int = 0, sample_mode: str = "bilinear", dedupe: int = 0,
+                 dtype: str = "float32"):
         super().__init__()
         self.n_views, self.sample_mode, self.dedupe = n_views, sample_mode, dedupe
+        self.key_dtype = I2P_DTYPES[dtype]
         self.q_proj = nn.Linear(c, c)
         self.k_proj = nn.Linear(c, c)
         self.v_proj = nn.Linear(c, c)
@@ -161,8 +177,14 @@ class MMRI_I2P(nn.Module):
         """Pillar queries qh [n, C] over their keys [n, K, C], masked by
         ``kmask`` [n, K], logits plus ``bias`` [n, K] if given. Returns
         (out [n, C], any_key [n])."""
-        kh = self.k_proj(keys)
-        vh = self.v_proj(keys)
+        if self.key_dtype == torch.float32:
+            kh = self.k_proj(keys)
+            vh = self.v_proj(keys)
+        else:
+            keys, qh = keys.to(self.key_dtype), qh.to(self.key_dtype).float()
+            kh, vh = (keys @ proj.weight.to(self.key_dtype).T + proj.bias.to(self.key_dtype)
+                      for proj in (self.k_proj, self.v_proj))
+            kh, vh = kh.float(), vh.float()
         logits = torch.einsum("qc,qkc->qk", qh, kh)
         if bias is not None:
             logits = logits + bias
@@ -170,6 +192,8 @@ class MMRI_I2P(nn.Module):
         any_key = kmask.any(-1)
         attn = torch.softmax(logits, -1)
         attn = torch.where(any_key[:, None], attn, attn.new_zeros(()))
+        if self.key_dtype != torch.float32:
+            attn = attn.to(self.key_dtype).float()
         return self.out_proj(torch.einsum("qk,qkc->qc", attn, vh)), any_key
 
     def _from_all_views(self, qh, feat, grid, kmask, nearest: bool):
@@ -183,7 +207,7 @@ class MMRI_I2P(nn.Module):
             keys = sampled.reshape(v, n, -1, c).permute(1, 2, 0, 3).reshape(n, -1, c)
         else:
             sampled = F.grid_sample(
-                feat.permute(0, 3, 1, 2), grid[:, None], mode="bilinear", padding_mode="zeros",
+                feat.permute(0, 3, 1, 2).to(grid.dtype), grid[:, None], mode="bilinear", padding_mode="zeros",
                 align_corners=False,
             )  # [V, C, 1, n*P]
             keys = sampled[:, :, 0].reshape(v, c, n, -1).permute(2, 3, 0, 1).reshape(n, -1, c)
@@ -239,7 +263,7 @@ class MMRI_I2P(nn.Module):
         for i in range(b):
             coor = pillar_coords[i].long()
             qh = self.q_proj(lidar_feat[i][coor[:, 1], coor[:, 2]]) * (1.0 / math.sqrt(c))
-            feat = img_feats[i]
+            feat = img_feats[i].to(self.key_dtype)
             if top:
                 args = tuple(t[i] for t in geom)
                 chunk = lambda s, e: tuple(t[s:e] for t in args)  # noqa: E731
@@ -341,10 +365,10 @@ class MMRIEncoderLayer(nn.Module):
     """One bilateral interaction layer."""
 
     def __init__(self, cfg: MMRIEncoderConfig, i2p_views: int = 0, i2p_sample: str = "bilinear",
-                 i2p_dedupe: int = 0):
+                 i2p_dedupe: int = 0, i2p_dtype: str = "float32"):
         super().__init__()
         c, k = cfg.hidden_channel, cfg.local_attn_kernel
-        self.i2p = MMRI_I2P(c, i2p_views, i2p_sample, i2p_dedupe)
+        self.i2p = MMRI_I2P(c, i2p_views, i2p_sample, i2p_dedupe, i2p_dtype)
         self.p_iml = LocalContextAttentionBlock(c, c, c, k)
         self.p_out_proj = ConvBNReLU(2 * c, c, 1, use_act=False)
         self.p_integration = ConvBNReLU(2 * c, c, 1, use_act=False)
@@ -375,14 +399,14 @@ class MMRIEncoder(nn.Module):
 
     The JAX package's settings (``levers.py``) come in as arguments, each
     0 or off by default (the reference's math): ``i2p_views``,
-    ``i2p_sample`` and ``i2p_dedupe`` for :class:`MMRI_I2P` and its
-    geometry, ``warp_views`` and ``depth_fill_lite`` (eval only) for
+    ``i2p_sample``, ``i2p_dedupe`` and ``i2p_dtype`` for :class:`MMRI_I2P`
+    and its geometry, ``warp_views`` and ``depth_fill_lite`` (eval only) for
     :func:`bevwarp_grid`."""
 
     def __init__(self, cfg: MMRIEncoderConfig, cin_img: int, cin_pts: int,
                  pc_range: Tuple[float, ...], input_shape: Tuple[int, int], i2p_views: int = 0,
                  i2p_sample: str = "bilinear", i2p_dedupe: int = 0, warp_views: int = 0,
-                 depth_fill_lite: bool = False):
+                 depth_fill_lite: bool = False, i2p_dtype: str = "float32"):
         super().__init__()
         c = cfg.hidden_channel
         self.pc_range = tuple(pc_range)
@@ -392,7 +416,7 @@ class MMRIEncoder(nn.Module):
         self.shared_conv_img = Conv2d(cin_img, c, 3, 1, 1)
         self.shared_conv_pts = Conv2d(cin_pts, c, 3, 1, 1)
         for i in range(cfg.num_layers):
-            self.add_module(f"layer{i}", MMRIEncoderLayer(cfg, i2p_views, i2p_sample, i2p_dedupe))
+            self.add_module(f"layer{i}", MMRIEncoderLayer(cfg, i2p_views, i2p_sample, i2p_dedupe, i2p_dtype))
 
     def forward(self, img_feats, pts_feats, batch: Dict[str, torch.Tensor], train: bool = False):
         b, v = img_feats.shape[:2]

@@ -26,7 +26,7 @@ import torch
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("subm_conv.cu", "local_attention.cu")
+SOURCES = ("subm_conv.cu", "local_attention.cu", "auction_lap.cu")
 HEADERS = ("tf32_mma.cuh",)  # included by the sources: part of the build's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -44,6 +44,8 @@ _SIGNATURES = {
     "di_local_attn_fwd": ([_P] * 4 + [_I] * 5 + [ctypes.c_float, _P], _I),
     # q, k, v, dout, dq, dk, dv, lse, dsum, b, h, w, c, kernel, scale, stream
     "di_local_attn_bwd": ([_P] * 9 + [_I] * 5 + [ctypes.c_float, _P], _I),
+    # cost, num_gt, eps_rel (host floats), out, rounds, n, p, g, phases, cap, stream
+    "di_auction_lap": ([_P, _P, ctypes.POINTER(ctypes.c_float), _P, _P] + [_I] * 5 + [_P], _I),
     "di_error_string": ([_I], ctypes.c_char_p),
 }
 

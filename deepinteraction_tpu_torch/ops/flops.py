@@ -14,6 +14,11 @@ the FLOP count (``tools/get_flops.py``) and by the bounds of
   over the k x k window);
 - K2 backward: 10 * k^2 * C a pixel (q.k, dO.v, dS k, dS q and P dO).
 
+The auction kernel (``ops/hungarian.py::auction_lap``) is left out: it
+does no useful multiply (its rounds compare and add), so it counts zero,
+and it needs no counted operator, since its ctypes launch is invisible to
+the dispatch mode and its plain version on the CPU calls no matmul.
+
 While :func:`counting_kernels` is active, each kernel wrapper calls its
 kernel (or, on a CPU tensor, its plain version) through a custom operator
 whose FLOP formula is the one above; the dispatch mode is off while that

@@ -4,8 +4,11 @@
 ``HungarianAssigner3D``).
 
 One [B, L, P, G] cost tensor on the device (focal class cost, normalised
-BEV L1, rotated 3D IoU), one host round trip for the Hungarian matching,
-then the targets and losses on the device. GT boxes arrive padded to G with
+BEV L1, rotated 3D IoU), the Hungarian matching by ``acfg.lap_impl``
+(``ops/hungarian.py``: ``callback``, one host round trip for scipy, or
+``auction``, on the device), then the targets and losses on the device.
+:func:`heuristic_assign` is the reference's nearest-centre assigner, a
+library function that no config selects, as in JAX. GT boxes arrive padded to G with
 a mask. In LiDAR-only mode (``num_mmpi=0``) there is one output layer and no
 on-image mask.
 
@@ -66,9 +69,6 @@ def build_targets(
     acfg: AssignerConfig,
     bev_shape: Tuple[int, int],
 ) -> Targets:
-    if acfg.lap_impl != "callback":
-        raise ValueError(f"model.assigner.lap_impl={acfg.lap_impl!r}: the port matches with scipy on the host "
-                         "('callback'); the JAX package's on-device auction LAP is not ported")
     coder = TransFusionBBoxCoder(ccfg)
     nl = max(dcfg.num_mmpi, 1)
     p = preds["center"].shape[1] // nl
@@ -104,7 +104,7 @@ def build_targets(
             cost[i, li] = torch.where(gt_mask[i][None, :], c, c.new_full((), BIG))
 
     num_gt = gt_mask.int().sum(-1)  # [B]
-    assign = hungarian_assign(cost, num_gt[:, None].expand(b, nl))  # [B, L, P]
+    assign = hungarian_assign(cost, num_gt[:, None].expand(b, nl), impl=acfg.lap_impl)  # [B, L, P]
     matched = assign >= 0
     safe = assign.clamp(min=0).long()
 
@@ -147,6 +147,40 @@ def build_targets(
         mean_iou=iou_t.sum() / torch.clamp(npos, min=1),
         assign=assign,
     )
+
+
+def heuristic_assign(
+    boxes: torch.Tensor,  # [P, >=2] predicted boxes (BEV centres used)
+    gt_boxes: torch.Tensor,  # [G, >=2]
+    gt_mask: torch.Tensor,  # [G]
+    pred_labels: torch.Tensor | None = None,  # [P] int
+    gt_labels: torch.Tensor | None = None,  # [G] int
+    dist_thre: float = 100.0,
+) -> torch.Tensor:
+    """Nearest-centre assigner (JAX ``targets/assign.py:169-206``, the
+    reference's ``HeuristicAssigner3D``): each GT claims its nearest
+    prediction (a different class adds ``dist_thre`` when labels are
+    given) within ``dist_thre`` metres; a prediction claimed by several GTs
+    keeps the closest, and among equally close ones the smallest GT index.
+    Returns [P] int32 matched GT index or -1, on the inputs' device."""
+    p, g = boxes.shape[0], gt_boxes.shape[0]
+    d = torch.linalg.vector_norm(gt_boxes[:, None, :2] - boxes[None, :, :2], dim=-1)  # [G, P]
+    if pred_labels is not None and gt_labels is not None:
+        d = d + (gt_labels[:, None] != pred_labels[None, :]).to(d.dtype) * dist_thre
+    d = torch.where(gt_mask[:, None], d, d.new_full((), float("inf")))
+    nearest = torch.argmin(d, 1)  # [G] the first of equal minima
+    nearest_d = d.gather(1, nearest[:, None])[:, 0]
+    ok = gt_mask & (nearest_d <= dist_thre)
+    # contested predictions keep the closest GT: scatter-min the distances
+    # (a trash slot p for the GTs that claim none), then the GTs at it win
+    slot = torch.where(ok, nearest, p)
+    best = d.new_full((p + 1,), float("inf")).scatter_reduce(
+        0, slot, torch.where(ok, nearest_d, d.new_full((), float("inf"))), "amin")
+    wins = ok & (nearest_d == best[nearest])
+    gt_ids = torch.arange(g, dtype=torch.int32, device=boxes.device)
+    assign = torch.full((p + 1,), g, dtype=torch.int32, device=boxes.device).scatter_reduce(
+        0, torch.where(wins, nearest, p), torch.where(wins, gt_ids, g), "amin")[:p]
+    return torch.where(assign == g, -1, assign)
 
 
 def detection_loss(

@@ -85,11 +85,11 @@ def parse_args(argv: Optional[List[str]] = None):
 def launch_counts() -> Dict[str, int]:
     """The port's kernel launch counters (each wrapper counts the launches
     of its kernel in this process)."""
-    from ..ops import local_attention as la
+    from ..ops import hungarian, local_attention as la
     from ..ops import subm_conv as smc
 
     return {f.__name__: f.launches for f in (smc.subm_conv_gemm, smc.subm_conv_dgrad, smc.subm_conv_wgrad,
-                                             la.local_attn_fwd, la.local_attn_bwd)}
+                                             la.local_attn_fwd, la.local_attn_bwd, hungarian.auction_lap)}
 
 
 def _frame_from_fused(boxes, scores, labels, class_names) -> DetectionFrame:

@@ -38,10 +38,13 @@ rank. Only rank 0 writes: ``config.json``, the logs (the metrics are the
 global batch's), TensorBoard, the checkpoints and the profiler trace; the
 evaluations are sharded over the ranks and scored on rank 0. The summary
 line also counts the train steps' collectives and their all-reduced bytes
-(``parallel/mesh.py``). The Hungarian matching has one
-implementation (scipy on the host, ``ops/hungarian.py``): any
-``model.assigner.lap_impl`` but ``callback`` raises. ``cfg.data.gt_database`` is not passed to the
-dataset, as the JAX CLI does not pass it.
+(``parallel/mesh.py``). The Hungarian matching follows
+``model.assigner.lap_impl`` (``ops/hungarian.py``): ``callback``, the
+default, solves on the host with scipy; ``auction`` runs the auction kernel
+on the card (``--cfg-options model.assigner.lap_impl=auction``), its
+launches counted under ``auction_lap``; the summary names the one used
+(``lap_impl``). ``cfg.data.gt_database`` is not passed to the dataset, as
+the JAX CLI does not pass it.
 """
 
 from __future__ import annotations
@@ -244,6 +247,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             mesh.destroy_distributed()
 
     summary = {"config": args.config, "device": str(device), "work_dir": work_dir, "ranks": world,
+               "lap_impl": cfg.model.assigner.lap_impl,
                "first_step": first_step, "last_step": step.step_count, "steps": step.step_count - first_step,
                "levers": dataclasses.asdict(model.levers), "launches": train_launches,
                "eval_launches": eval_launches, "collectives": collectives,

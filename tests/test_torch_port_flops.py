@@ -8,7 +8,8 @@
   tables), K2's forward and backward at 4 k^2 C and 10 k^2 C a pixel, with
   none of their plain versions' own matmuls counted;
 - the count of a whole forward is the same run to run, and ``--train``
-  counts more than the forward;
+  counts more than the forward; a train step with ``lap_impl=auction``
+  counts what the scipy step counts (the auction is left out);
 - with counting off the wrappers dispatch exactly the operators they did
   before a counted run (no counted operator among them).
 """
@@ -24,6 +25,7 @@ import jax.numpy as jnp
 from deepinteraction_tpu import configs as jcfg
 from deepinteraction_tpu.models.detector import DeepInteraction as JModel
 from deepinteraction_tpu.utils.testing import make_synthetic_batch
+from deepinteraction_tpu_torch.configs import apply_overrides
 from deepinteraction_tpu_torch.ops import flops
 from deepinteraction_tpu_torch.ops import local_attention as la
 from deepinteraction_tpu_torch.ops import subm_conv as smc
@@ -113,6 +115,19 @@ def test_forward_count_repeats_and_train_counts_more(capsys):
     assert train["flops"] > a["flops"] and train["per"] == "step"
     assert train["flops_by_op"]["di_port.subm_conv_wgrad"] > 0
     assert capsys.readouterr().out.splitlines()[-2].endswith("GFLOPs per step")
+
+
+def test_auction_step_counts_what_the_callback_step_counts():
+    """``lap_impl=auction``: the auction does no useful multiply and is left
+    out of the count, so a ``tiny_lidar`` train step counts exactly what
+    the scipy step counts: the matching changes no counted operation."""
+    counts = {}
+    for impl in ("callback", "auction"):
+        cfg = apply_overrides(CONFIGS["tiny_lidar"](), {"model.assigner.lap_impl": impl})
+        model = benchmark.build_model(cfg, True, "cpu")
+        run = benchmark.make_run(cfg, model, benchmark.synthetic_batches(cfg, 1, 2, True, "cpu"), True, "cpu")
+        _, counts[impl], _ = flops.count_flops(run, 0)
+    assert counts["auction"] == counts["callback"] > 0
 
 
 class _Record(TorchDispatchMode):

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1 subm_conv_gemm with its backward, d/dfeat
 over the inverse table and subm_conv_wgrad; K2 local_attn_fwd and its
-backward local_attn_bwd) against their plain PyTorch versions, on the card,
-alone and inside the tiny slices (``fusion_base`` and DeepInteraction++).
+backward local_attn_bwd; the auction LAP, auction_lap, exactly) against
+their plain PyTorch versions, on the card, alone and inside the tiny slices
+(``fusion_base`` and DeepInteraction++).
 
 Marked ``gpu``: each test skips where ``torch.cuda.is_available()`` is false
 (the decision is taken inside the fixture, never at import). On a machine
@@ -475,3 +476,43 @@ def test_image_stage_and_nms_on_card_match_cpu(cuda):
         got = nms_keep(boxes.to(cuda), scores.to(cuda), labels.to(cuda), valid.to(cuda), kind, 1000)
         assert torch.equal(got.cpu(), want), kind
         assert want.sum() < valid.sum()
+
+
+AUCTION_CASES = {  # name: (cost [n, P, G], num_gt [n], eps phases)
+    "model_scale": lambda r: (r.uniform(0, 10, (1, 200, 200)), [30], (1e-3,)),
+    "train_step_shape": lambda r: (r.uniform(0, 3, (8, 200, 200)), [17, 17, 17, 17, 44, 44, 44, 44], (1e-3,)),
+    "ragged": lambda r: (r.uniform(0, 5, (3, 37, 20)), [20, 11, 0], (1e-3,)),
+    "integer_ties": lambda r: (r.integers(0, 4, (2, 100, 60)), [60, 33], (1e-3,)),
+    "constant": lambda r: (np.full((1, 50, 20), 2.5), [20], (1e-3,)),
+    "one_row": lambda r: (np.array([[[3.0]]]), [1], (1e-3,)),
+    "two_phases": lambda r: (r.uniform(0, 10, (2, 30, 30)), [25, 30], (1e-2, 1e-3)),
+}
+
+
+@pytest.mark.parametrize("case", list(AUCTION_CASES))
+def test_auction_lap_equals_plain(cuda, case):
+    """The auction kernel computes the plain version's float32 operations in
+    its order with no contracted adds: assignments and rounds exactly
+    equal, and two calls give the same bits."""
+    from deepinteraction_tpu_torch.ops import hungarian
+
+    cost, num_gt, phases = AUCTION_CASES[case](np.random.default_rng(len(case)))
+    cost = torch.from_numpy(np.asarray(cost, np.float32)).to(cuda)
+    num_gt = torch.tensor(num_gt, dtype=torch.int32, device=cuda)
+    want, want_rounds = hungarian.auction_assign_plain(cost, num_gt, phases, with_rounds=True)
+    before = hungarian.auction_lap.launches
+    got, rounds = hungarian.auction_lap(cost, num_gt, phases)
+    again, _ = hungarian.auction_lap(cost, num_gt, phases)
+    torch.cuda.synchronize()
+    assert hungarian.auction_lap.launches == before + 2
+    assert torch.equal(got, want) and torch.equal(rounds, want_rounds) and torch.equal(again, got)
+    assert torch.equal(hungarian.auction_assign(cost, num_gt, phases), got)
+    for a, ng in zip(got.cpu(), num_gt.tolist()):
+        assert sorted(a[a >= 0].tolist()) == list(range(ng))
+
+
+def test_auction_lap_refuses_more_columns_than_rows(cuda):
+    from deepinteraction_tpu_torch.ops import hungarian
+
+    with pytest.raises(ValueError, match="G=6 > P=5"):
+        hungarian.auction_lap(torch.ones(2, 5, 6, device=cuda), torch.tensor([3, 3], dtype=torch.int32, device=cuda))

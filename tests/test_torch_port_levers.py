@@ -83,10 +83,10 @@ MOD_TOL = 1e-4
 BF16_TOL = 2e-2  # of scale
 EXACT = ("query_labels", "on_image_masks")
 # the JAX package's DI_* names that choose among TPU implementations of
-# the same math (ROADMAP.md), and the one still to port
+# the same math (ROADMAP.md)
 TPU_ONLY = re.compile(r"DI_(SPARSE_IMPL|SPARSE_TRAIN_IMPL|BANDED_\w+|NBR_\w+|GATHER_BWD\w*|I2P_UNROLL|I2P_CHUNK"
                       r"|MSDA_HEADS_MAJOR|MSDA_COMBINE|PALLAS_LOCATT|PALLAS_LOCATT_TRAIN|LOCATT_MXU"
-                      r"|TPU_NATIVE_IO|I2P_DTYPE)$")
+                      r"|TPU_NATIVE_IO)$")
 
 
 def _t(a):
@@ -119,14 +119,16 @@ def test_levers_are_jax_defaults(monkeypatch):
         monkeypatch.delenv(name, raising=False)
     assert EvalLevers.from_env() == EvalLevers()
     assert EvalLevers.from_env(EvalLevers.parity().as_env()) == EvalLevers.parity()
-    assert EvalLevers.from_env({"DI_DENSE_BF16": "1", "DI_I2P_DEDUPE": "8"}) == EvalLevers(
-        dense_bf16=True, i2p_dedupe=8)
+    assert EvalLevers.from_env({"DI_DENSE_BF16": "1", "DI_I2P_DEDUPE": "8", "DI_I2P_DTYPE": "bfloat16"}
+                               ) == EvalLevers(dense_bf16=True, i2p_dedupe=8, i2p_dtype="bfloat16")
     # the gate tool's parity set: every setting but the TPU's sparse conv
     parity = {k: v for k, v in gate_eval.PARITY.items() if k in ENV}
     assert parity == {k: v for k, v in EvalLevers.parity().as_env().items() if k in gate_eval.PARITY}
     assert set(gate_eval.PARITY) - set(parity) == {"DI_SPARSE_IMPL"}
     with pytest.raises(ValueError):
         EvalLevers(i2p_sample="bicubic")
+    with pytest.raises(ValueError, match="i2p_dtype"):
+        EvalLevers.from_env({"DI_I2P_DTYPE": "float16"})
 
 
 def test_nearest_samplers_match_jax():
@@ -221,12 +223,15 @@ def test_i2p_geometry_top2_matches_jax(six_views):
     np.testing.assert_array_equal(vidx[0][tie][0, :, 0].numpy(), [0, 1])
 
 
-I2P_CASES = {  # name: (n_views, sample mode, dedupe, train)
-    "top2_bilinear": (2, "bilinear", 0, False),
-    "top2_nearest": (2, "nearest", 0, False),
-    "top2_dedupe8": (2, "nearest", 8, False),
-    "top2_train": (2, "nearest", 0, True),
-    "all_views_nearest": (0, "nearest", 0, False),
+I2P_CASES = {  # name: (n_views, sample mode, dedupe, train, I2P dtype)
+    "top2_bilinear": (2, "bilinear", 0, False, "float32"),
+    "top2_nearest": (2, "nearest", 0, False, "float32"),
+    "top2_dedupe8": (2, "nearest", 8, False, "float32"),
+    "top2_train": (2, "nearest", 0, True, "float32"),
+    "all_views_nearest": (0, "nearest", 0, False, "float32"),
+    "top2_bilinear_bf16": (2, "bilinear", 0, False, "bfloat16"),
+    "all_views_bilinear_bf16": (0, "bilinear", 0, False, "bfloat16"),
+    "top2_train_bf16": (2, "nearest", 0, True, "bfloat16"),
 }
 
 
@@ -235,8 +240,10 @@ def test_mmri_encoder_i2p_settings_match_jax(case, six_views, monkeypatch):
     """The one-layer MMRI encoder with JAX's ``MMRI_I2P`` fields and
     ``DI_WARP_VIEWS`` set to the case, against the port's encoder with the
     same arguments. In train both sample bilinear and normalise with the
-    batch's statistics."""
-    nv, mode, dd, train = I2P_CASES[case]
+    batch's statistics. With bf16 keys (JAX's ``DI_I2P_DTYPE``) both sides
+    are held to 2e-2 of scale, and the port's bf16 output must move
+    against its fp32 one."""
+    nv, mode, dd, train, dt = I2P_CASES[case]
     cfg, batch, jbatch = six_views
     ncfg = cfg.model.imgpts_neck
     h, w = cfg.data.padded_img_shape
@@ -249,6 +256,7 @@ def test_mmri_encoder_i2p_settings_match_jax(case, six_views, monkeypatch):
         n_views: int = nv
         sample_mode: str = mode
         dedupe: int = dd
+        dtype: str = dt
 
     monkeypatch.setattr(jmmri, "MMRI_I2P", CaseI2P)
     monkeypatch.setenv("DI_WARP_VIEWS", str(nv))
@@ -262,7 +270,7 @@ def test_mmri_encoder_i2p_settings_match_jax(case, six_views, monkeypatch):
     want_i2p = np.asarray(state["intermediates"]["layer0"]["i2p"]["__call__"][0])
 
     port = MMRIEncoder(ncfg, ncfg.in_channels_img, ncfg.in_channels_pts, pcr, (h, w), i2p_views=nv,
-                       i2p_sample=mode, i2p_dedupe=dd, warp_views=nv)
+                       i2p_sample=mode, i2p_dedupe=dd, warp_views=nv, i2p_dtype=dt)
     load_flax(port, _np(variables))
     captured = {}
     port.layer0.i2p.register_forward_hook(lambda m, a, o: captured.setdefault("i2p", o))
@@ -270,9 +278,21 @@ def test_mmri_encoder_i2p_settings_match_jax(case, six_views, monkeypatch):
     with torch.set_grad_enabled(train):
         got_img, (_, got_pts) = port(timg, torch.from_numpy(pts), batch, train=train)
     assert np.abs(want_i2p).max() > 0.1
-    np.testing.assert_allclose(captured["i2p"].detach().numpy(), want_i2p, rtol=MOD_TOL, atol=MOD_TOL)
-    np.testing.assert_allclose(got_pts.detach().numpy(), np.asarray(want_pts), rtol=MOD_TOL, atol=MOD_TOL)
-    np.testing.assert_allclose(got_img.detach().numpy(), np.asarray(want_img), rtol=MOD_TOL, atol=MOD_TOL)
+    if dt == "bfloat16":
+        for what, g, wnt in (("i2p", captured["i2p"], want_i2p), ("pts", got_pts, want_pts), ("img", got_img, want_img)):
+            _close_of_scale(g.detach(), wnt, BF16_TOL, what)
+        fp32 = MMRIEncoder(ncfg, ncfg.in_channels_img, ncfg.in_channels_pts, pcr, (h, w), i2p_views=nv,
+                           i2p_sample=mode, warp_views=nv)
+        fp32.load_state_dict(port.state_dict())
+        fp32.layer0.i2p.register_forward_hook(lambda m, a, o: captured.__setitem__("fp32", o))
+        with torch.no_grad():
+            fp32(torch.from_numpy(img), torch.from_numpy(pts), batch, train=train)
+        moved = (captured["fp32"] - captured["i2p"]).abs().max().item()
+        assert moved > MOD_TOL * np.abs(want_i2p).max(), moved
+    else:
+        np.testing.assert_allclose(captured["i2p"].detach().numpy(), want_i2p, rtol=MOD_TOL, atol=MOD_TOL)
+        np.testing.assert_allclose(got_pts.detach().numpy(), np.asarray(want_pts), rtol=MOD_TOL, atol=MOD_TOL)
+        np.testing.assert_allclose(got_img.detach().numpy(), np.asarray(want_img), rtol=MOD_TOL, atol=MOD_TOL)
 
     if train:
         # the image features' gradient through the top-2 keys (and the
@@ -282,7 +302,8 @@ def test_mmri_encoder_i2p_settings_match_jax(case, six_views, monkeypatch):
             jm.apply(variables, x, pts, jbatch, True, mutable=["batch_stats"])[0][1][1] * r)))(img)
         (got_pts * torch.from_numpy(r)).sum().backward()
         jgrad = np.asarray(jgrad)
-        np.testing.assert_allclose(timg.grad.numpy(), jgrad, rtol=0, atol=MOD_TOL * np.abs(jgrad).max())
+        tol = BF16_TOL if dt == "bfloat16" else MOD_TOL
+        np.testing.assert_allclose(timg.grad.numpy(), jgrad, rtol=0, atol=tol * np.abs(jgrad).max())
 
     if case == "top2_dedupe8":
         # a pillar-view with more than 8 distinct pixels, whose keys past
@@ -479,12 +500,22 @@ def _defaults(monkeypatch):
     assert jmmri.MMRI_I2P.n_views == 2 and jmmri.MMRI_I2P.dedupe == 0
 
 
-@pytest.mark.parametrize("which", ["fusion_base", "pp"])
+@pytest.mark.parametrize("which", ["fusion_base", "pp", "fusion_base_bf16"])
 def test_tiny_forward_at_defaults_matches_jax(which, monkeypatch):
     """Six views widened, so that pillars reach three views and the MMPI
-    image blocks take queries; random weights (``fast_init_variables``)."""
+    image blocks take queries; random weights (``fast_init_variables``).
+    ``fusion_base_bf16`` adds ``DI_I2P_DTYPE=bfloat16`` on both sides
+    (JAX's ``MMRI_I2P.dtype`` is read at import: a subclass): every head
+    within 2e-2 of its scale, labels and masks exactly."""
     _defaults(monkeypatch)
-    cfg = _six_view_cfg() if which == "fusion_base" else dataclasses.replace(
+    bf16 = which.endswith("_bf16")
+    if bf16:
+        class BF16I2P(jmmri.MMRI_I2P):
+            dtype: str = "bfloat16"
+
+        monkeypatch.setattr(jmmri, "MMRI_I2P", BF16I2P)
+        monkeypatch.setenv("DI_I2P_DTYPE", "bfloat16")
+    cfg = _six_view_cfg() if which.startswith("fusion_base") else dataclasses.replace(
         jtiny_pp(), data=dataclasses.replace(jtiny_pp().data, num_views=6))
     np_batch = _wide_cameras(jax_batch(cfg, b=1, with_gt=True, seed=5), cfg)
     jb = {k: jnp.asarray(v) for k, v in np_batch.items()}
@@ -493,7 +524,7 @@ def test_tiny_forward_at_defaults_matches_jax(which, monkeypatch):
     want = _np(jax.jit(lambda v, b: model.apply(v, b, False))(variables, jb))
 
     port = DeepInteraction(cfg.model, cfg.data.padded_img_shape).eval()
-    assert port.levers == EvalLevers()
+    assert port.levers == EvalLevers(i2p_dtype="bfloat16" if bf16 else "float32")
     load_flax(port, _np(variables))
     batch = to_torch(np_batch, "cpu")
     got = port(batch)
@@ -501,8 +532,15 @@ def test_tiny_forward_at_defaults_matches_jax(which, monkeypatch):
     for k in sorted(want):
         if k in EXACT:
             np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
+        elif bf16:
+            _close_of_scale(got[k], want[k], BF16_TOL, k)
         else:
             np.testing.assert_allclose(got[k].numpy(), want[k], rtol=RTOL, atol=ATOL, err_msg=k)
+    if bf16:
+        fp32 = DeepInteraction(cfg.model, cfg.data.padded_img_shape, levers=EvalLevers()).eval()
+        fp32.load_state_dict(port.state_dict())
+        assert max((fp32(batch)[k] - got[k]).abs().max().item() for k in got if k not in EXACT) > 0
+        return
 
     # the defaults took effect: a pillar reaches three views, and the
     # parity model is far from JAX's defaults

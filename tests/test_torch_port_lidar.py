@@ -68,15 +68,31 @@ def test_configs_copy_equals_jax(name):
 
 @pytest.mark.parametrize("impl", ["auction", "scipy"])
 def test_lap_impl_other_than_callback_raises(impl):
-    """The port matches with scipy on the host (JAX's ``callback``); another
-    ``model.assigner.lap_impl`` is refused, not silently run as scipy."""
+    """``model.assigner.lap_impl`` takes JAX's two values: ``auction`` runs
+    (on the CPU, the plain auction) and matches every GT of every sample;
+    any other value is refused, not silently run as scipy."""
     from deepinteraction_tpu_torch.targets.assign import build_targets
 
     cfg = tcfg.apply_overrides(tcfg.tiny_lidar_config(), {"model.assigner.lap_impl": impl})
     assert cfg.model.assigner.lap_impl == impl
     m = cfg.model
-    with pytest.raises(ValueError, match="auction LAP is not ported"):
-        build_targets({}, None, None, None, m.pts_bbox_head, m.bbox_coder, m.assigner, (8, 8))
+    rng = np.random.default_rng(6)
+    b, p, hb = 2, m.pts_bbox_head.num_proposals, 8
+    preds = {k: _t(rng.normal(size=(b, p, n)).astype(np.float32))
+             for k, n in (("center", 2), ("height", 1), ("dim", 3), ("rot", 2), ("vel", 2),
+                          ("heatmap", m.pts_bbox_head.num_classes))}
+    preds["center"] = preds["center"].abs() * hb / 2
+    np_batch = jax_batch(jcfg.tiny_lidar_config(), b=b, with_gt=True, seed=6)
+    gt = [_t(np_batch[k]) for k in ("gt_boxes", "gt_labels", "gt_mask")]
+    if impl != "auction":
+        with pytest.raises(ValueError, match=r"lap_impl='scipy': expected one of \('callback', 'auction'\)"):
+            build_targets(preds, *gt, m.pts_bbox_head, m.bbox_coder, m.assigner, (hb, hb))
+        return
+    t = build_targets(preds, *gt, m.pts_bbox_head, m.bbox_coder, m.assigner, (hb, hb))
+    assert t.assign.shape == (b, 1, p) and t.assign.dtype == torch.int32
+    for i in range(b):
+        got = t.assign[i, 0][t.assign[i, 0] >= 0]
+        assert sorted(got.tolist()) == list(range(int(gt[2][i].sum()))) != []
 
 
 @pytest.fixture(scope="module")
