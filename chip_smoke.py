@@ -261,20 +261,31 @@ lap_impl=auction``, ``ops/hungarian.py``) and its bf16 I2P keys
 The twelfth is the two Pallas kernels' bf16 numerics, the JAX package's
 defaults in eval (``DI_SPARSE_IMPL=banded``, ``DI_LOCATT_MXU=bf16``):
 
-29. with no ``DI_*`` variable set (FP32_KERNELS cleared), K1's bf16 variant
-    (``subm_conv_gemm_bf16``) against its bf16 plain version at the five
-    submanifold conv shapes of phase 19's first realistic frame and at 9
-    random hits a row, K2's (``local_attn_fwd_bf16``) at phase 5's four
-    shapes, within K1_BF16_TOL / K2_BF16_TOL of scale and BF16_MOVED_SHARE
-    of the outputs moved; each with its time, the fp32 kernel's at the same
-    inputs, its bound at the bf16 tensor-core rate and its launches a frame;
-    then that frame through ``fusion_base`` from phase 19's checkpoint with
-    the launch counters set to 0 just before and read just after (17 bf16
-    and 4 fp32 K1 launches, 6 bf16 K2), its trunks against the same frame
-    with both kernels swapped for their bf16 plain versions (sort orders
-    replayed) within BF16_TRUNK_TOL of scale, the heads logged, the heads'
-    distance to the same weights with the fp32 kernels and ms/frame of
-    both; the same for ``fusion_plusplus`` (K1 only).
+29. with no ``DI_*`` variable set (FP32_KERNELS cleared): the banded
+    plan's overflow flag (``sparse_conv.banded_overflow``, the JAX defaults'
+    tiles and windows) of every (frame, stage) of phase 19's 9 realistic
+    val frames; K1's bf16 variant (``subm_conv_gemm_bf16``, the bf16 kernel
+    of ``csrc/subm_conv_bf16.cu`` after the wrapper's casts) against its
+    bf16 plain version at the five submanifold conv shapes of phase 19's
+    first realistic frame and at 9 random hits a row, and with
+    ``per_tap=False`` (``DI_SPARSE_IMPL=s2d``) at the same shapes,
+    K2's (``local_attn_fwd_bf16``) at phase 5's four shapes, within
+    K1_BF16_TOL / K2_BF16_TOL of scale and BF16_MOVED_SHARE of the outputs
+    moved (s2d within K1_TOL); each with its time, the fp32 kernel's at the
+    same inputs, its bound at the bf16 tensor-core rate and its launches a
+    frame; one conv whose plan overflows (an 8-row window) through the gated
+    pair: the fp32 kernel computes it, bit for bit, ``subm_conv.taken``
+    says so; then that frame through ``fusion_base`` from phase 19's
+    checkpoint with the launch counters and ``taken`` set to 0 just before
+    and read just after (17 bf16 launches, 4 + 17 fp32 ones, the 17 gated by
+    the flags; ``taken`` as the flags say; 6 bf16 K2), each of its 17
+    submanifold convs on its own inputs against the bf16 plain version and
+    timed as it ran (the frame's K1 time at the defaults), its trunks
+    against the same frame with both kernels swapped for their bf16 plain
+    versions (flags and sort orders replayed) within BF16_TRUNK_TOL of
+    scale, the heads logged, the heads' distance to the same weights with
+    the fp32 kernels and ms/frame of both; the same for
+    ``fusion_plusplus`` (K1 only).
 
 Record and replay of ReLU masks, sort orders, dropout masks, sampling
 positions, boxes and L1 signs span the whole forward and backward (:func:`step_grads` wraps
@@ -585,8 +596,8 @@ def plain_kernels(k1: bool = True):
     restored on exit."""
     saved = (sparse_encoder.subm_conv_gemm, mmri_encoder.local_attn_fwd)
     if k1:
-        sparse_encoder.subm_conv_gemm = (lambda f, nbr, w, valid, inv=None, bf16=False:
-                                         smc.gathered_matmul(f, nbr, w, valid, bf16))
+        sparse_encoder.subm_conv_gemm = (lambda f, nbr, w, valid, inv=None, bf16=False, per_tap=True, ovf=None:
+                                         smc.plain_conv(f, nbr, w, valid, bf16, per_tap, ovf))
     mmri_encoder.local_attn_fwd = la.local_attention
     try:
         yield
@@ -2695,31 +2706,72 @@ def bf16_diff(got: torch.Tensor, ref: torch.Tensor) -> tuple:
     return err, rel, ((got - ref).abs() > 1e-6 * scale).float().mean().item()
 
 
+def realistic_frame(cfg, dev, root: str) -> dict:
+    """Sample 0 of a one-scene realistic tree written under ``root`` at
+    phase 19's seed (its first val frame's scene), loaded as the eval CLI
+    loads it, on ``dev``."""
+    write_realistic_nuscenes(root, num_scenes=1, samples_per_scene=1, num_val_scenes=1, seed=0, device=dev)
+    _, val = create_nuscenes_infos(root, root, version="v1.0-trainval")
+    host = next(DataLoader(NuScenesDataset(cfg, val, train=False), 1, num_workers=0).epoch(0, shuffle=False))
+    host.pop("pad_count"), host.pop("token")
+    return to_device(host, cfg.data, dev)
+
+
+def stage_flags(cfg, batch, dev, levers: EvalLevers) -> list:
+    """The banded plan's overflow flag of each stage's submanifold table on
+    sample 0 of ``batch`` at ``levers``' tile and windows, with the table's
+    hits a row: [(flag, hits/row)]."""
+    windows = levers.banded_windows()
+    stages = [c for c in encoder_tables(cfg, batch, dev, cfg.model.pts_voxel_layer.max_voxels[1], False)
+              if c[0].startswith("stage")]
+    return [(bool(sc.banded_overflow(nbr, valid, levers.banded_t, windows[min(i, len(windows) - 1)])),
+             ((nbr < kin) & valid[:, None]).sum().item() / max(valid.sum().item(), 1))
+            for i, (_, nbr, _, valid, kin, _, _, _) in enumerate(stages)]
+
+
 def run_bf16(dev, paths: dict, smi: str) -> tuple:
     """Phase 29: the two Pallas kernels' bf16 numerics, the JAX package's
     defaults (``DI_SPARSE_IMPL=banded``, ``DI_LOCATT_MXU=bf16``), with no
     ``DI_*`` variable set (FP32_KERNELS cleared):
 
+    - the banded plan's overflow flag of every (frame, stage) of phase 19's
+      realistic val frames;
     - K1's bf16 variant against its bf16 plain version at the submanifold
       convs' shapes of phase 19's first realistic frame (and 9 random hits a
-      row), K2's at the four shapes of phase 5, each with the fp32 kernel's
-      time at the same inputs, its bound at the bf16 tensor-core rate and its
-      launches a frame;
-    - that frame through ``fusion_base`` from phase 19's checkpoint: launches
-      (17 bf16 and 4 fp32 K1, 6 bf16 K2), the trunks against the same frame
-      with both plain versions (sort orders replayed) within BF16_TRUNK_TOL of
-      scale, the heads logged; against the same weights with the fp32
-      kernels (the heads' distance); ms/frame and peak memory of each;
+      row), with per-tap rounding and without (``s2d``), K2's at the four
+      shapes of phase 5, each with the fp32 kernel's time at the same
+      inputs, its bound at the bf16 tensor-core rate and its launches a
+      frame; one conv whose plan overflows, through the gated pair;
+    - that frame through ``fusion_base`` from phase 19's checkpoint:
+      launches (17 bf16, 4 + 17 fp32, 6 bf16 K2) and ``subm_conv.taken``
+      against the flags, its 17 submanifold convs against the bf16 plain
+      version and timed as they ran, the trunks against the same frame with
+      both plain versions (flags and sort orders replayed) within
+      BF16_TRUNK_TOL of scale, the heads logged; against the same weights
+      with the fp32 kernels (the heads' distance); ms/frame and peak memory
+      of each;
     - the same for ``fusion_plusplus`` (random weights, seed 0; K1 only).
 
     Returns the two kernels' records and the two frames' launches."""
     t_start = time.perf_counter()
     gen = torch.Generator().manual_seed(29)
     cfg = fusion_base_config()
-    p = cfg.test_num_proposals
-    host = next(DataLoader(NuScenesDataset(cfg, paths["val"], train=False), 1, num_workers=0).epoch(0, shuffle=False))
-    host.pop("pad_count"), host.pop("token")
-    batch = to_device(host, cfg.data, dev)
+    levers = EvalLevers()
+    per_stage = [5, 4, 4, 4]  # submanifold convs a stage: conv_input and stage 0's two blocks, two blocks each
+
+    flags = []
+    for i, host in enumerate(DataLoader(NuScenesDataset(cfg, paths["val"], train=False), 1,
+                                        num_workers=0).epoch(0, shuffle=False)):
+        host.pop("pad_count"), host.pop("token")
+        fb = to_device(host, cfg.data, dev)
+        flags.append(stage_flags(cfg, fb, dev, levers))
+        if i == 0:
+            batch = fb
+        log(f"banded plan (T={levers.banded_t}, W={levers.banded_w}) of realistic val frame {i}: overflow by stage "
+            f"{[f for f, _ in flags[-1]]}, hits/row {[round(h, 2) for _, h in flags[-1]]}")
+    n_fp32 = sum(n for n, (f, _) in zip(per_stage, flags[0]) if f)
+    log(f"{sum(f for row in flags for f, _ in row)} of {4 * len(flags)} (frame, stage) plans overflow; the first "
+        f"frame computes {n_fp32} of its 17 submanifold convs in fp32 at the defaults, as JAX does")
 
     k1 = {"max_abs_err": 0.0, "shapes": []}
     cases = [c for c in encoder_tables(cfg, batch, dev, cfg.model.pts_voxel_layer.max_voxels[1], False)
@@ -2735,22 +2787,44 @@ def run_bf16(dev, paths: dict, smi: str) -> tuple:
         w = (torch.randn(taps, cin, cout, generator=gen) / (taps * cin) ** 0.5).to(dev)
         err, rel, moved = bf16_diff(smc.subm_conv_gemm_bf16(feats, nbr, w, valid),
                                     smc.gathered_matmul(feats, nbr, w, valid, bf16=True))
+        s2d_err, s2d_rel = rel_err(smc.subm_conv_gemm_bf16(feats, nbr, w, valid, per_tap=False),
+                                   smc.gathered_matmul(feats, nbr, w, valid, bf16=True, per_tap=False))
         t = timing(lambda: smc.subm_conv_gemm_bf16(feats, nbr, w, valid),
                    lambda: smc.gathered_matmul(feats, nbr, w, valid, bf16=True),
                    k1_bound("fwd", nbr, valid, kin, cin, cout, "bf16"), n)
         t["fp32_ms"] = device_time_ms(lambda: smc.subm_conv_gemm(feats, nbr, w, valid))
+        t["s2d_ms"] = device_time_ms(lambda: smc.subm_conv_gemm_bf16(feats, nbr, w, valid, per_tap=False))
         shape = f"realistic {name}, K={kin}->{ko} {cin}->{cout} {taps} taps, {hits:.2f} hits/row"
         log(f"K1 subm_conv_gemm_bf16 {shape}: max_abs_err={err:.3e} max_rel_err={rel:.3e} (tolerance "
             f"{K1_BF16_TOL}), {moved:.2e} of the outputs more than 1e-6 of scale apart (at most "
-            f"{BF16_MOVED_SHARE}); {timing_text(t)} "
-            f"fp32_kernel_ms={t['fp32_ms']:.4f}")
+            f"{BF16_MOVED_SHARE}); {timing_text(t)} fp32_kernel_ms={t['fp32_ms']:.4f}; s2d (per_tap=False) "
+            f"max_rel_err={s2d_rel:.3e} (tolerance {K1_TOL}) s2d_ms={t['s2d_ms']:.4f}")
         assert rel <= K1_BF16_TOL and moved <= BF16_MOVED_SHARE, f"K1 bf16 {name}: {rel:.3e}, {moved:.2e}"
-        k1["max_abs_err"] = max(k1["max_abs_err"], err)
-        k1["shapes"].append(dict(t, shape=shape, max_rel_err=rel))
+        assert s2d_rel <= K1_TOL, f"K1 s2d {name}: {s2d_rel:.3e}"
+        k1["max_abs_err"] = max(k1["max_abs_err"], err, s2d_err)
+        k1["shapes"].append(dict(t, shape=shape, max_rel_err=rel, s2d_max_rel_err=s2d_rel))
     k1["ms_per_frame"] = sum(t["launch_ms"] for t in k1["shapes"])
     k1["fp32_ms_per_frame"] = sum(t["launches"] * t["fp32_ms"] for t in k1["shapes"])
-    log(f"K1 subm_conv_gemm_bf16 per realistic fusion_base frame (17 convs): sum of launches*ms = "
-        f"{k1['ms_per_frame']:.4f} ms, the fp32 kernel's at the same convs {k1['fp32_ms_per_frame']:.4f} ms")
+    log(f"K1 subm_conv_gemm_bf16 per realistic fusion_base frame (17 convs on the bf16 kernel): sum of "
+        f"launches*ms = {k1['ms_per_frame']:.4f} ms, the fp32 kernel's at the same convs "
+        f"{k1['fp32_ms_per_frame']:.4f} ms ({smi})")
+
+    # one conv whose plan overflows (stage 0's table in 8-row windows): the
+    # gated pair launches both kernels and the fp32 one computes it
+    ovf = sc.banded_overflow(nbr0, valid0, levers.banded_t, 8)
+    feats = torch.randn(k0, 16, generator=gen).to(dev)
+    w = (torch.randn(27, 16, 16, generator=gen) / (27 * 16) ** 0.5).to(dev)
+    for c in COUNTED:
+        c.launches = 0
+    smc.taken(dev).zero_()
+    out = smc.subm_conv_gemm_bf16(feats, nbr0, w, valid0, ovf=ovf)
+    torch.cuda.synchronize()
+    launches, taken = {c.__name__: c.launches for c in COUNTED}, smc.taken(dev).tolist()
+    same = torch.equal(out, smc.subm_conv_gemm(feats, nbr0, w, valid0))
+    log(f"an overflowing conv (stage 0's table, W=8, flag {bool(ovf)}): launches {launches}, taken [fp32, bf16] = "
+        f"{taken}, the fp32 kernel's bits: {same}")
+    assert bool(ovf) and taken == [1, 0] and same, (bool(ovf), taken, same)
+    assert launches == expect_launches(subm_conv_gemm=1, subm_conv_gemm_bf16=1), launches
 
     k2 = {"max_abs_err": 0.0, "shapes": []}
     for shape, n in (((6, 112, 200, 128), 4), ((1, 180, 180, 128), 2), ((12, 112, 200, 128), 0),
@@ -2774,21 +2848,36 @@ def run_bf16(dev, paths: dict, smi: str) -> tuple:
     log(f"K2 local_attn_fwd_bf16 per fusion_base eval frame: sum of launches*ms = {k2['ms_per_frame']:.4f} ms, "
         f"the fp32 kernel's {k2['fp32_ms_per_frame']:.4f} ms")
 
-    def frames(model, config, fbatch, trunks, want, label):
-        """The frame at the defaults (launches, trunks and heads against the
-        plain versions), then with the fp32 kernels; ms/frame of each."""
+    def frames(model, config, fbatch, trunks, want, taken_want, label, convs=None):
+        """The frame at the defaults (launches, ``taken``, trunks and heads
+        against the plain versions; with ``convs``, each submanifold conv's
+        inputs recorded into it), then with the fp32 kernels; ms/frame of
+        each."""
         captured = {}
         hooks = [model.get_submodule(n).register_forward_hook(lambda m, a, o, n=n: captured.__setitem__(n, o))
                  for n in trunks]
+        kernel = sparse_encoder.subm_conv_gemm
+
+        def record(f, nbr, w, valid, inv=None, bf16=False, per_tap=True, ovf=None):
+            if bf16 and convs is not None:
+                convs.append((f, nbr, w, valid, per_tap, ovf))
+            return kernel(f, nbr, w, valid, inv, bf16=bf16, per_tap=per_tap, ovf=ovf)
+
         orders, flips = [], []
-        for c in COUNTED:
-            c.launches = 0
-        with sort_orders(orders, False, flips):
-            preds = model(fbatch)
-        torch.cuda.synchronize()
-        launches = {c.__name__: c.launches for c in COUNTED}
-        log(f"{label} at the JAX defaults {model.levers}, realistic frame, B=1: launches {launches}")
-        assert launches == want, launches
+        sparse_encoder.subm_conv_gemm = record
+        try:
+            for c in COUNTED:
+                c.launches = 0
+            smc.taken(dev).zero_()
+            with sort_orders(orders, False, flips):
+                preds = model(fbatch)
+            torch.cuda.synchronize()
+        finally:
+            sparse_encoder.subm_conv_gemm = kernel
+        launches, taken = {c.__name__: c.launches for c in COUNTED}, smc.taken(dev).tolist()
+        log(f"{label} at the JAX defaults {model.levers}, realistic frame, B=1: launches {launches}, "
+            f"taken [fp32, bf16] = {taken}")
+        assert launches == want and taken == taken_want, (launches, taken)
         assert all(torch.isfinite(v.float()).all() for v in preds.values())
         kern = dict(captured)
         with plain_kernels(), sort_orders(orders, True, flips):
@@ -2816,12 +2905,32 @@ def run_bf16(dev, paths: dict, smi: str) -> tuple:
         return launches, {k: ms for k, (ms, _) in timed.items()}
 
     with defaults_env():
-        assert EvalLevers.from_env() == EvalLevers(), EvalLevers.from_env()
-        model = load_weights(paths["ckpt"], DeepInteraction(cfg.model, cfg.data.padded_img_shape, p).to(dev).eval())
+        assert EvalLevers.from_env() == levers, EvalLevers.from_env()
+        model = load_weights(paths["ckpt"], DeepInteraction(cfg.model, cfg.data.padded_img_shape,
+                                                            cfg.test_num_proposals).to(dev).eval())
+        convs = []
         launches, ms = frames(model, cfg, batch, ("pts_middle_encoder", "imgpts_neck"),
-                              expect_launches(subm_conv_gemm=4, subm_conv_gemm_bf16=17, local_attn_fwd_bf16=6),
-                              "fusion_base eval")
-        del model, batch
+                              expect_launches(subm_conv_gemm=4 + 17, subm_conv_gemm_bf16=17, local_attn_fwd_bf16=6),
+                              [n_fp32, 17 - n_fp32], "fusion_base eval", convs)
+        # the frame's 17 submanifold convs on their own inputs, gated as they
+        # ran: against the plain version, and timed (the frame's K1 time at
+        # the defaults) beside the fp32 kernel and the bf16 kernel ungated
+        frame = {"convs": len(convs), "ms": 0.0, "fp32_ms": 0.0, "bf16_ms": 0.0, "max_rel_err": 0.0}
+        for f, nbr, w, valid, per_tap, ovf in convs:
+            _, rel, moved = bf16_diff(smc.subm_conv_gemm_bf16(f, nbr, w, valid, per_tap=per_tap, ovf=ovf),
+                                      smc.plain_conv(f, nbr, w, valid, True, per_tap, ovf))
+            assert rel <= K1_BF16_TOL and moved <= BF16_MOVED_SHARE, (tuple(f.shape), rel, moved)
+            frame["max_rel_err"] = max(frame["max_rel_err"], rel)
+            frame["ms"] += device_time_ms(lambda: smc.subm_conv_gemm_bf16(f, nbr, w, valid, per_tap=per_tap, ovf=ovf))
+            frame["fp32_ms"] += device_time_ms(lambda: smc.subm_conv_gemm(f, nbr, w, valid))
+            frame["bf16_ms"] += device_time_ms(lambda: smc.subm_conv_gemm_bf16(f, nbr, w, valid, per_tap=per_tap))
+        log(f"fusion_base eval frame's {frame['convs']} submanifold convs on their own inputs: max rel err "
+            f"{frame['max_rel_err']:.3e} against the bf16 plain version (tolerance {K1_BF16_TOL}); K1 at the "
+            f"defaults (gated pairs) {frame['ms']:.4f} ms a frame, the bf16 kernel ungated {frame['bf16_ms']:.4f}, "
+            f"the fp32 kernel {frame['fp32_ms']:.4f} ({smi})")
+        assert frame["convs"] == 17, frame
+        k1["frame"] = frame
+        del model, batch, convs
         gc.collect()
         torch.cuda.empty_cache()
         pcfg = fusion_plusplus_config()
@@ -2829,15 +2938,16 @@ def run_bf16(dev, paths: dict, smi: str) -> tuple:
             0, shuffle=False))
         host.pop("pad_count"), host.pop("token")
         pbatch = to_device(host, pcfg.data, dev)
+        pp_fp32 = sum(n for n, (f, _) in zip(per_stage, stage_flags(pcfg, pbatch, dev, levers)) if f)
         model = DeepInteraction(pcfg.model, pcfg.data.padded_img_shape, pcfg.test_num_proposals).to(dev).eval()
         init_weights(model, seed=0)
         pp_launches, pp_ms = frames(model, pcfg, pbatch, ("pts_middle_encoder", "img_neck", "imgpts_neck"),
-                                    expect_launches(subm_conv_gemm=4, subm_conv_gemm_bf16=17),
-                                    "fusion_plusplus eval")
+                                    expect_launches(subm_conv_gemm=4 + 17, subm_conv_gemm_bf16=17),
+                                    [pp_fp32, 17 - pp_fp32], "fusion_plusplus eval")
     del model, pbatch
     gc.collect()
     torch.cuda.empty_cache()
-    k1.update(frame_ms=ms, pp_frame_ms=pp_ms)
+    k1.update(frame_ms=ms, pp_frame_ms=pp_ms, overflow_flags=[[f for f, _ in row] for row in flags])
     log(f"phase 29 took {time.perf_counter() - t_start:.1f} s")
     return k1, k2, {"fusion_base eval at the JAX defaults (bf16 kernels), realistic frame, B=1": launches,
                     "fusion_plusplus eval at the JAX defaults (bf16 kernels), realistic frame, B=1": pp_launches}
@@ -2933,7 +3043,7 @@ def main() -> int:
          "replaces": "deepinteraction_tpu/ops/local_attention_pallas.py:162", **headline(k2b, "[12, 112, 200, 128]"),
          "launches": fusion_launches["local_attn_bwd"], "path": fusion_path,
          "launches_by_path": by_path("local_attn_bwd"), "library_ms": None},
-        {"name": "subm_conv_gemm_bf16", "route": "cuda", "source": src,
+        {"name": "subm_conv_gemm_bf16", "route": "cuda", "source": "deepinteraction_tpu_torch/csrc/subm_conv_bf16.cu",
          "replaces": "deepinteraction_tpu/ops/sparse_conv_banded.py:98", **headline(k1_bf16, "realistic stage3"),
          "launches": bf16_paths[bf16_path]["subm_conv_gemm_bf16"], "path": bf16_path,
          "launches_by_path": by_path("subm_conv_gemm_bf16"), "library_ms": None},

@@ -1,7 +1,8 @@
 // bf16 products on mma.sync for the kernels' bf16 variants, which compute
 // what the JAX package's Pallas kernels compute on a TPU by default: bf16
-// operands, fp32 accumulation. Operands arrive in fp32 and are rounded to
-// bf16 in registers (round to nearest, ties to even, as XLA's convert).
+// operands, fp32 accumulation. K2's operands arrive in fp32 and are rounded
+// to bf16 in registers (round to nearest, ties to even, as XLA's convert);
+// K1's arrive in bf16 and reach the fragments by ldmatrix.
 
 #pragma once
 
@@ -32,6 +33,17 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, one fragment register each:
+// lanes 8i .. 8i + 7 give the row addresses (16 bytes each) of matrix i, and
+// lane 4g + t receives row g, elements 2t and 2t + 1 of every matrix
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
 }
 
 }  // namespace di

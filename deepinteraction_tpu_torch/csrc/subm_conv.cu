@@ -60,25 +60,15 @@
 // submanifold convs, the 27-tap strided downsample convs and the 3-tap
 // conv_out, given the matching neighbor table.
 //
-// The bf16 variant (BF16 = true, entry di_subm_conv_gemm_bf16) computes what
-// the Pallas kernel computes by default (_banded_apply, :174-180, and the
-// kernel's per-tap rounding, :108-117): out[i] = sum_d bf16(bf16(feat[j]) @
-// bf16(w[d])) with j = nbr[i, d], each tap's product summed over Cin in fp32,
-// rounded to bf16 (nearest, ties to even), then added to the fp32 output in
-// fp32. It reads the same fp32 feat and w and rounds them to bf16 in
-// registers (bf16_mma.cuh), so it moves the same bytes as the fp32 kernel;
-// its operations run at the bf16 tensor-core rate (989 TFLOP/s), one
-// mma.sync m16n8k16 per product instead of three m16n8k8. Each warp keeps a
-// second register tile, the current tap's product, which it rounds and adds
-// to the output tile after the tap's last Cin chunk; a warp that skips a
-// tap adds zero. Chunks are 16 or 32 channels (the MMA depth is 16; Cin = 5
-// is zero-padded to 16), and the 128-wide convs take 64 x 128 tiles of
-// 8 warps (32 x 32 each), which keep both register tiles under 128
-// registers a thread.
+// Gated launches (entry di_subm_conv_gemm_gated): the kernel runs only where
+// the device byte *gate is set and adds one to *taken when it does, so a
+// caller can launch it beside K1's bf16 variant (subm_conv_bf16.cu, which
+// runs where *gate is clear) and let a flag on the card pick the conv's
+// numerics without a host sync: the banded plan's overflow fallback to fp32
+// (deepinteraction_tpu/ops/sparse_conv_banded.py:189-194).
 
 #include <stdint.h>
 
-#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -109,16 +99,18 @@ __host__ __device__ inline int head_floats(int tm, int taps) {
 
 enum : int { kFeatVec = 1, kWVec = 2, kNbrVec = 4 };
 
-template <class T, bool BF16>
+template <class T>
 __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
     subm_conv_gemm_kernel(const float* __restrict__ feat,
                           const int32_t* __restrict__ nbr,
                           const float* __restrict__ w,
                           const uint8_t* __restrict__ valid,
                           float* __restrict__ out, int kin, int ko, int taps,
-                          int cin, int cout, int flags) {
+                          int cin, int cout, int flags,
+                          const uint8_t* __restrict__ gate, int* __restrict__ taken) {
+  if (gate != nullptr && *gate == 0) return;  // K1's bf16 variant computes this conv
   constexpr int TM = T::TM, TN = T::TN, KC = T::KC, STAGES = T::STAGES, THREADS = T::THREADS;
-  static_assert(!BF16 || KC % 16 == 0, "bf16 chunks are whole MMA depths");
+  if (taken != nullptr && threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0) *taken += 1;
   extern __shared__ float4 smem4[];
   int32_t* table = reinterpret_cast<int32_t*>(smem4);  // [TM][taps], -1 = miss
   uint32_t* mask = reinterpret_cast<uint32_t*>(table + TM * taps);  // taps that hit the tile
@@ -222,17 +214,6 @@ __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
     for (int j = 0; j < T::NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  // bf16: the current tap's product, rounded and added to acc after its
-  // last chunk (one element in the fp32 kernel, where it is unused)
-  constexpr int PM = BF16 ? T::MT : 1, PN = BF16 ? T::NT : 1;
-  float part[PM][PN][4];
-#pragma unroll
-  for (int i = 0; i < PM; ++i)
-#pragma unroll
-    for (int j = 0; j < PN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
-
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nstage) load(s);
     di::cp_async_commit();
@@ -249,65 +230,26 @@ __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
     if (__any_sync(0xffffffffu, mine)) {
       const float* as = stages + (s % STAGES) * T::STAGE + wm * T::WM * T::AP;
       const float* bs = stages + (s % STAGES) * T::STAGE + TM * T::AP + wn * T::WN;
-      if constexpr (BF16) {
 #pragma unroll
-        for (int kk = 0; kk < KC; kk += 16) {
-          uint32_t a[T::MT][4];
+      for (int kk = 0; kk < KC; kk += 8) {
+        uint32_t ah[T::MT][4], al[T::MT][4];
 #pragma unroll
-          for (int i = 0; i < T::MT; ++i) {
-            const float* ap = as + (i * 16 + g) * T::AP + kk + 2 * t;
-            const float2 x0 = *reinterpret_cast<const float2*>(ap);
-            const float2 x1 = *reinterpret_cast<const float2*>(ap + 8 * T::AP);
-            const float2 x2 = *reinterpret_cast<const float2*>(ap + 8);
-            const float2 x3 = *reinterpret_cast<const float2*>(ap + 8 * T::AP + 8);
-            a[i][0] = di::pack_bf16(x0.x, x0.y);
-            a[i][1] = di::pack_bf16(x1.x, x1.y);
-            a[i][2] = di::pack_bf16(x2.x, x2.y);
-            a[i][3] = di::pack_bf16(x3.x, x3.y);
-          }
-#pragma unroll
-          for (int j = 0; j < T::NT; ++j) {
-            const float* b = bs + (kk + 2 * t) * T::BP + j * 8 + g;
-            const uint32_t bb[2] = {di::pack_bf16(b[0], b[T::BP]), di::pack_bf16(b[8 * T::BP], b[9 * T::BP])};
-#pragma unroll
-            for (int i = 0; i < T::MT; ++i) di::mma_bf16(part[i][j], a[i], bb);
-          }
+        for (int i = 0; i < T::MT; ++i) {
+          const float* a = as + (i * 16 + g) * T::AP + kk + t;
+          di::split_tf32(a[0], ah[i][0], al[i][0]);
+          di::split_tf32(a[8 * T::AP], ah[i][1], al[i][1]);
+          di::split_tf32(a[4], ah[i][2], al[i][2]);
+          di::split_tf32(a[8 * T::AP + 4], ah[i][3], al[i][3]);
         }
-      } else {
 #pragma unroll
-        for (int kk = 0; kk < KC; kk += 8) {
-          uint32_t ah[T::MT][4], al[T::MT][4];
+        for (int j = 0; j < T::NT; ++j) {
+          const float* b = bs + (kk + t) * T::BP + j * 8 + g;
+          uint32_t bh[2], bl[2];
+          di::split_tf32(b[0], bh[0], bl[0]);
+          di::split_tf32(b[4 * T::BP], bh[1], bl[1]);
 #pragma unroll
-          for (int i = 0; i < T::MT; ++i) {
-            const float* a = as + (i * 16 + g) * T::AP + kk + t;
-            di::split_tf32(a[0], ah[i][0], al[i][0]);
-            di::split_tf32(a[8 * T::AP], ah[i][1], al[i][1]);
-            di::split_tf32(a[4], ah[i][2], al[i][2]);
-            di::split_tf32(a[8 * T::AP + 4], ah[i][3], al[i][3]);
-          }
-#pragma unroll
-          for (int j = 0; j < T::NT; ++j) {
-            const float* b = bs + (kk + t) * T::BP + j * 8 + g;
-            uint32_t bh[2], bl[2];
-            di::split_tf32(b[0], bh[0], bl[0]);
-            di::split_tf32(b[4 * T::BP], bh[1], bl[1]);
-#pragma unroll
-            for (int i = 0; i < T::MT; ++i) di::mma_split(acc[i][j], ah[i], al[i], bh, bl);
-          }
+          for (int i = 0; i < T::MT; ++i) di::mma_split(acc[i][j], ah[i], al[i], bh, bl);
         }
-      }
-    }
-    if constexpr (BF16) {
-      if (s % nk == nk - 1) {  // the tap's last chunk: round its product and add it
-#pragma unroll
-        for (int i = 0; i < T::MT; ++i)
-#pragma unroll
-          for (int j = 0; j < T::NT; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              acc[i][j][e] += di::round_bf16(part[i][j][e]);
-              part[i][j][e] = 0.f;
-            }
       }
     }
   }
@@ -337,45 +279,39 @@ __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
     }
 }
 
-template <int TM, int TN, int WARPS_M, int WARPS_N, int KC, int STAGES, bool BF16 = false>
+// the gate of a gated launch, null otherwise
+struct Gate {
+  const uint8_t* gate;
+  int* taken;
+};
+
+template <int TM, int TN, int WARPS_M, int WARPS_N, int KC, int STAGES>
 int launch(const float* feat, const int32_t* nbr, const float* w, const uint8_t* valid,
            float* out, int kin, int ko, int taps, int cin, int cout, int flags,
-           cudaStream_t stream) {
+           Gate gate, cudaStream_t stream) {
   using T = Tile<TM, TN, WARPS_M, WARPS_N, KC, STAGES>;
-  auto kernel = subm_conv_gemm_kernel<T, BF16>;
+  auto kernel = subm_conv_gemm_kernel<T>;
   const int smem = (head_floats(TM, taps) + STAGES * T::STAGE) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((ko + TM - 1) / TM, (cout + TN - 1) / TN);
-  kernel<<<grid, T::THREADS, smem, stream>>>(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, flags);
+  kernel<<<grid, T::THREADS, smem, stream>>>(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, flags,
+                                             gate.gate, gate.taken);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int KC>
 int launch_kc(const float* feat, const int32_t* nbr, const float* w, const uint8_t* valid,
               float* out, int kin, int ko, int taps, int cin, int cout, int flags,
-              cudaStream_t stream) {
-  if (cout <= 16) return launch<64, 16, 4, 1, KC, 4>(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, flags, stream);
-  if (cout <= 32) return launch<64, 32, 4, 1, KC, 4>(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, flags, stream);
+              Gate gate, cudaStream_t stream) {
+  if (cout <= 16) return launch<64, 16, 4, 1, KC, 4>(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, flags, gate, stream);
+  if (cout <= 32) return launch<64, 32, 4, 1, KC, 4>(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, flags, gate, stream);
   // 32-channel stages of the 128-wide tile would leave room for only 2
   // blocks an SM: the caller takes KC = 32 only up to 64 output columns
   if constexpr (KC <= 16) {
-    if (cout > 64) return launch<128, 128, 4, 2, KC, 3>(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, flags, stream);
+    if (cout > 64) return launch<128, 128, 4, 2, KC, 3>(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, flags, gate, stream);
   }
-  return launch<64, 64, 2, 2, KC, 3>(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, flags, stream);
-}
-
-// the bf16 variant's tiles: as above up to 64 output columns; above, 64 x 128
-// with 8 warps of 32 x 32, since each warp holds a tap's product beside the
-// output tile
-template <int KC>
-int launch_kc_bf16(const float* feat, const int32_t* nbr, const float* w, const uint8_t* valid,
-                   float* out, int kin, int ko, int taps, int cin, int cout, int flags,
-                   cudaStream_t stream) {
-  if (cout <= 16) return launch<64, 16, 4, 1, KC, 4, true>(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, flags, stream);
-  if (cout <= 32) return launch<64, 32, 4, 1, KC, 4, true>(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, flags, stream);
-  if (cout <= 64) return launch<64, 64, 2, 2, KC, 3, true>(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, flags, stream);
-  return launch<64, 128, 2, 4, KC, 3, true>(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, flags, stream);
+  return launch<64, 64, 2, 2, KC, 3>(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, flags, gate, stream);
 }
 
 // subm_conv_wgrad replaces d/dW of the JAX backward,
@@ -684,8 +620,8 @@ int launch_wgrad(const float* feat, const int32_t* nbr, const float* dy,
 namespace {
 
 int subm_conv_gemm_entry(const void* feat, const void* nbr, const void* w, const void* valid,
-                         void* out, int kin, int ko, int taps, int cin, int cout, void* stream,
-                         bool bf16) {
+                         void* out, int kin, int ko, int taps, int cin, int cout, Gate gate,
+                         void* stream) {
   if (ko <= 0 || cout <= 0) return 0;
   if (cin <= 0) taps = 0;  // nothing to sum: the output is zero
   auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
@@ -697,13 +633,9 @@ int subm_conv_gemm_entry(const void* feat, const void* nbr, const void* w, const
   const uint8_t* v = static_cast<const uint8_t*>(valid);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    if (cin <= 16 || cout > 64) return launch_kc_bf16<16>(f, n, wt, v, o, kin, ko, taps, cin, cout, flags, s);
-    return launch_kc_bf16<32>(f, n, wt, v, o, kin, ko, taps, cin, cout, flags, s);
-  }
-  if (cin <= 8) return launch_kc<8>(f, n, wt, v, o, kin, ko, taps, cin, cout, flags, s);
-  if (cin <= 16 || cout > 64) return launch_kc<16>(f, n, wt, v, o, kin, ko, taps, cin, cout, flags, s);
-  return launch_kc<32>(f, n, wt, v, o, kin, ko, taps, cin, cout, flags, s);
+  if (cin <= 8) return launch_kc<8>(f, n, wt, v, o, kin, ko, taps, cin, cout, flags, gate, s);
+  if (cin <= 16 || cout > 64) return launch_kc<16>(f, n, wt, v, o, kin, ko, taps, cin, cout, flags, gate, s);
+  return launch_kc<32>(f, n, wt, v, o, kin, ko, taps, cin, cout, flags, gate, s);
 }
 
 }  // namespace
@@ -712,16 +644,18 @@ extern "C" int di_subm_conv_gemm(const void* feat, const void* nbr,
                                  const void* w, const void* valid, void* out,
                                  int kin, int ko, int taps, int cin, int cout,
                                  void* stream) {
-  return subm_conv_gemm_entry(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, stream, false);
+  return subm_conv_gemm_entry(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, Gate{nullptr, nullptr},
+                              stream);
 }
 
-// the same arguments (fp32 feat and w); bf16 operands, each tap's product
-// rounded to bf16 before the fp32 sum over taps
-extern "C" int di_subm_conv_gemm_bf16(const void* feat, const void* nbr,
-                                      const void* w, const void* valid, void* out,
-                                      int kin, int ko, int taps, int cin, int cout,
-                                      void* stream) {
-  return subm_conv_gemm_entry(feat, nbr, w, valid, out, kin, ko, taps, cin, cout, stream, true);
+// the same, run only where the device byte *gate is set; *taken (a device
+// int) counts the launches that ran
+extern "C" int di_subm_conv_gemm_gated(const void* feat, const void* nbr,
+                                       const void* w, const void* valid, void* out,
+                                       int kin, int ko, int taps, int cin, int cout,
+                                       const void* gate, void* taken, void* stream) {
+  return subm_conv_gemm_entry(feat, nbr, w, valid, out, kin, ko, taps, cin, cout,
+                              Gate{static_cast<const uint8_t*>(gate), static_cast<int*>(taken)}, stream);
 }
 
 extern "C" int di_subm_conv_wgrad(const void* feat, const void* nbr,

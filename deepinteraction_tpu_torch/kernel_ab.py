@@ -14,9 +14,17 @@ main-path shapes:
   B*H*W*k^2 floats, the most any build of its C interface takes (builds up
   to commit 8b7bc36 keep P and dS there; later ones B*H*W floats each);
 - K1 ``subm_conv_gemm`` at the nine conv shapes of one ``fusion_base`` eval
-  frame, its bf16 variant ``subm_conv_gemm_bf16`` at the five submanifold
-  ones, and K1 as d/dfeat over the ``lidar_only`` train tables
+  frame, and K1 as d/dfeat over the ``lidar_only`` train tables
   (``chip_smoke.encoder_tables`` and ``chip_smoke.train_tables``);
+- K1's bf16 variant ``subm_conv_gemm_bf16`` at the five submanifold conv
+  shapes of a realistic ``fusion_base`` frame (``chip_smoke.
+  realistic_frame``, a one-scene tree of the realistic writer under
+  ``work_dirs/``), with per-tap rounding and, where both builds have it,
+  without (``s2d``), and as d/dfeat over the same tables, with the sum of
+  launches x time over the frame's 17 convs: the tree's path with its casts
+  (the wrapper's ``bf16_operand`` of feat and w, then ``di_subm_conv_bf16``)
+  against an earlier build's ``di_subm_conv_gemm_bf16`` (fp32 operands,
+  rounded in registers) or its path with casts;
 - K1's d/dW ``subm_conv_wgrad`` over the same train tables, with the sum of
   launches x time of each build over one ``lidar_only`` step (B=2);
 
@@ -34,7 +42,16 @@ against the fp32 CUDA-core d/dW of commit f0040e7::
     done
     python -m deepinteraction_tpu_torch.kernel_ab work_dirs/old_csrc
 
-Fails without a CUDA device.
+and K1's bf16 path against its build before the bf16 kernel's redesign
+(commit e20e1a6, which still read fp32 operands)::
+
+    mkdir -p work_dirs/bf16_csrc
+    git archive e20e1a6 deepinteraction_tpu_torch/csrc | tar -x -C work_dirs/bf16_csrc --strip-components=2
+    python -m deepinteraction_tpu_torch.kernel_ab work_dirs/bf16_csrc --match bf16
+
+``--match`` selects the cases whose label holds its text; the realistic
+frame is written only where a bf16 K1 label can match. Fails without a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -44,6 +61,7 @@ import ctypes
 import glob
 import math
 import os
+import shutil
 import subprocess
 import tempfile
 
@@ -54,6 +72,7 @@ import chip_smoke as cs
 from .configs import fusion_base_config, lidar_only_config
 from .ops import cuda_lib
 from .ops import local_attention as la
+from .ops import sparse_conv as sc
 from .ops import subm_conv as smc
 from .utils.synthetic import make_synthetic_batch, to_torch
 
@@ -92,7 +111,7 @@ def build_other(src_dir: str, out_dir: str) -> ctypes.CDLL:
     cuda_lib._run([subprocess.Popen([nvcc, *cuda_lib.NVCC_FLAGS, "-shared", "-o", so, *objs],
                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)])
     lib = ctypes.CDLL(so)
-    for name, (argtypes, restype) in cuda_lib._SIGNATURES.items():
+    for name, (argtypes, restype) in {**cuda_lib._SIGNATURES, "di_subm_conv_gemm_bf16": _OLD_BF16}.items():
         if hasattr(lib, name):  # an earlier build may lack an entry (the bf16 variants)
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = argtypes, restype
@@ -121,13 +140,28 @@ def mma_peak(out_dir: str) -> None:
               f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
 
 
-def gemm(lib, feat, nbr, w, valid, bf16=False):
+# the bf16 entry of the builds before the bf16 kernel's redesign: fp32
+# operands, the same arguments as di_subm_conv_gemm
+_OLD_BF16 = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p], ctypes.c_int)
+
+
+def gemm(lib, feat, nbr, w, valid, bf16=False, per_tap=True):
+    """K1's forward through ``lib``: fp32, or with ``bf16`` the bf16 path as
+    that build runs it (casts included where it takes bf16 operands)."""
     ko, taps = nbr.shape
-    out = torch.empty(ko, w.shape[-1], device=feat.device)
-    entry = lib.di_subm_conv_gemm_bf16 if bf16 else lib.di_subm_conv_gemm
-    cuda_lib.check(entry(feat.data_ptr(), nbr.data_ptr(), w.data_ptr(), valid.data_ptr(), out.data_ptr(),
-                         feat.shape[0], ko, taps, feat.shape[1], w.shape[-1], cuda_lib.stream_ptr(feat.device)),
-                   "subm_conv_gemm")
+    (kin, cin), cout = feat.shape, w.shape[-1]
+    out = torch.empty(ko, cout, device=feat.device)
+    stream = cuda_lib.stream_ptr(feat.device)
+    if bf16 and hasattr(lib, "di_subm_conv_bf16"):
+        cin_p = -(-cin // 16) * 16
+        xb, wb = smc.bf16_operand(feat, cin_p), smc.bf16_operand(w.transpose(1, 2), cin_p)
+        code = lib.di_subm_conv_bf16(xb.data_ptr(), nbr.data_ptr(), wb.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                                     kin, ko, taps, cin_p, cout, int(per_tap), None, None, stream)
+    else:
+        entry = lib.di_subm_conv_gemm_bf16 if bf16 else lib.di_subm_conv_gemm
+        code = entry(feat.data_ptr(), nbr.data_ptr(), w.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                     kin, ko, taps, cin, cout, stream)
+    cuda_lib.check(code, "subm_conv_gemm")
     return out
 
 
@@ -162,6 +196,43 @@ def attn_bwd(lib, q, k, v, dout, kernel):
                                          kernel, 1.0 / math.sqrt(c), cuda_lib.stream_ptr(q.device)),
                    "local_attn_bwd")
     return dq, dk, dv
+
+
+def bf16_frame(libs, dev, gen, k1_tol, bf16_tol, both_s2d: bool, match: str) -> None:
+    """K1's bf16 path at the five submanifold conv shapes of a realistic
+    ``fusion_base`` frame (forward, ``s2d`` where both builds have it, and
+    d/dfeat over the mirror table), with the sum of launches x time of each
+    build over the frame's 17 convs."""
+    cfg = fusion_base_config()
+    root = os.path.join(cuda_lib.PKG_DIR, os.pardir, "work_dirs", "kernel_ab_tree")
+    batch = cs.realistic_frame(cfg, dev, root)
+    per_frame = {"other": 0.0, "tree": 0.0}
+    for name, nbr, _, valid, kin, cin, cout, n in cs.encoder_tables(
+            cfg, batch, dev, cfg.model.pts_voxel_layer.max_voxels[1], False):
+        if name.startswith(("down", "conv_out")):
+            continue
+        hits = ((nbr < kin) & valid[:, None]).sum().item() / max(valid.sum().item(), 1)
+        f = torch.randn(kin, cin, generator=gen).to(dev)
+        w = (torch.randn(nbr.shape[1], cin, cout, generator=gen) / (nbr.shape[1] * cin) ** 0.5).to(dev)
+        label = f"{name} {cin}->{cout} x{n}, {hits:.2f} hits/row"
+        ms = in_turns(f"K1 fwd_bf16 realistic {label}", lambda lib: gemm(lib, f, nbr, w, valid, True), libs,
+                      smc.gathered_matmul(f, nbr, w, valid, bf16=True), bf16_tol, match)
+        for key, t in zip(("other", "tree"), ms):
+            per_frame[key] += n * t
+        if both_s2d:
+            in_turns(f"K1 fwd_bf16 s2d realistic {label}", lambda lib: gemm(lib, f, nbr, w, valid, True, False),
+                     libs, smc.gathered_matmul(f, nbr, w, valid, bf16=True, per_tap=False), k1_tol, match)
+        if name != "conv_input":  # the voxel features take no gradient
+            inv, every = sc.mirror_table(nbr), torch.ones(kin, dtype=torch.bool, device=dev)
+            dy = torch.where(valid[:, None], torch.randn(kin, cout, generator=gen).to(dev), 0.0)
+            wt = w.transpose(1, 2).contiguous()
+            in_turns(f"K1 dgrad_bf16 realistic {label}", lambda lib: gemm(lib, dy, inv, wt, every, True), libs,
+                     smc.gathered_matmul(dy, inv, wt, every, bf16=True), bf16_tol, match)
+    shutil.rmtree(root, ignore_errors=True)
+    if per_frame["other"]:
+        print(f"K1 fwd_bf16 per realistic fusion_base frame (17 convs), sum of launches*ms: other "
+              f"{per_frame['other']:.4f} ms, tree {per_frame['tree']:.4f} ms, "
+              f"tree/other={per_frame['tree'] / per_frame['other']:.3f}", flush=True)
 
 
 def in_turns(label: str, run, libs: dict, ref, tol, match: str = "") -> tuple:
@@ -213,7 +284,10 @@ def main() -> None:
                 return rel <= tol and moved <= cs.BF16_MOVED_SHARE
             return close
 
-        both_bf16 = all(hasattr(lib, "di_subm_conv_gemm_bf16") for lib in libs.values())
+        both_bf16 = all(hasattr(lib, "di_local_attn_fwd_bf16") for lib in libs.values())
+        k1_bf16 = all(hasattr(lib, "di_subm_conv_bf16") or hasattr(lib, "di_subm_conv_gemm_bf16")
+                      for lib in libs.values())
+        both_s2d = all(hasattr(lib, "di_subm_conv_bf16") for lib in libs.values())
         for shape in ((6, 112, 200, 128), (1, 180, 180, 128)):
             q, k, v = (torch.randn(shape, generator=gen).to(dev) for _ in range(3))
             in_turns(f"K2 local_attn_fwd {list(shape)} k=9", lambda lib: attn(lib, q, k, v, 9), libs,
@@ -234,9 +308,8 @@ def main() -> None:
             w = (torch.randn(nbr.shape[1], cin, cout, generator=gen) / (nbr.shape[1] * cin) ** 0.5).to(dev)
             in_turns(f"K1 fwd eval {name} {cin}->{cout} x{n}", lambda lib: gemm(lib, f, nbr, w, valid), libs,
                      smc.gathered_matmul(f, nbr, w, valid), k1_tol, args.match)
-            if both_bf16 and not name.startswith(("down", "conv_out")):
-                in_turns(f"K1 fwd_bf16 eval {name} {cin}->{cout} x{n}", lambda lib: gemm(lib, f, nbr, w, valid, True),
-                         libs, smc.gathered_matmul(f, nbr, w, valid, bf16=True), bf16_tol(cs.K1_BF16_TOL), args.match)
+        if k1_bf16 and any(args.match in p for p in ("K1 fwd_bf16 s2d realistic", "K1 dgrad_bf16 realistic")):
+            bf16_frame(libs, dev, gen, k1_tol, bf16_tol(cs.K1_BF16_TOL), both_s2d, args.match)
         lcfg = lidar_only_config()
         lbatch = to_torch(make_synthetic_batch(lcfg, b=2, seed=0, with_gt=True), dev)
         b = lcfg.data.samples_per_device

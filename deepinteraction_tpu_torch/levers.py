@@ -38,11 +38,18 @@ DI_I2P_DTYPE           float32     I2P keys, their projections and the
 DI_SPARSE_IMPL         banded      the 17 submanifold convs of the sparse
                                    encoder (K1) on bf16 operands, each
                                    tap's fp32 product rounded to bf16,
-                                   fp32 sum over taps (eval; any other
-                                   value: fp32, as ``gather``)
-DI_SPARSE_TRAIN_IMPL   gather      ``banded`` puts the same K1 forward, and
-                                   its mirror for d/dfeat, into train
-                                   (while DI_SPARSE_IMPL is ``banded``)
+                                   fp32 sum over taps, fp32 for a sample-
+                                   stage whose banded plan overflows
+                                   (eval); ``s2d``: bf16 operands, one
+                                   fp32 sum (both, on every device); any
+                                   other value: fp32, as ``gather``
+DI_SPARSE_TRAIN_IMPL   gather      the value train takes while
+                                   DI_SPARSE_IMPL is ``banded``:
+                                   ``banded`` puts the same K1 forward,
+                                   and its mirror for d/dfeat, into train
+DI_BANDED_T            128         the banded plan's tile rows
+DI_BANDED_W            512         its window: one value, or one a stage
+                                   (``512,384,320,256``; the last repeats)
 DI_PALLAS_LOCATT       1           local attention (K2) at the precision
                                    DI_LOCATT_MXU names (eval); ``0``: fp32
 DI_PALLAS_LOCATT_TRAIN 0           ``1`` puts that K2 forward into train;
@@ -52,15 +59,17 @@ DI_LOCATT_MXU          bf16        K2's q, k, v and its normalised
                                    softmax; ``f32``: fp32
 =====================  ==========  ========================================
 
-The last five are the precisions of the two Pallas kernels. The JAX package
-applies them only on its TPU (``models/sparse_encoder.py::_resolve_impl``,
+``DI_SPARSE_IMPL`` ... ``DI_LOCATT_MXU`` are the precisions of the two
+Pallas kernels. The JAX package applies ``banded`` and K2's settings only on
+its TPU (``models/sparse_encoder.py::_resolve_impl``,
 ``ops/local_attention_pallas.py::local_attention_auto``); off it, it
 computes fp32. The port applies them only where the model's tensors are on
-CUDA (:meth:`EvalLevers.bf16_kernels`), so on the CPU it computes fp32 too.
+CUDA (:meth:`EvalLevers.k1_numerics`, :meth:`EvalLevers.bf16_kernels`), so
+on the CPU it computes fp32 too; ``s2d`` it applies everywhere, as JAX does.
 The fp32 kernels on the card: ``DI_SPARSE_IMPL=gather DI_LOCATT_MXU=f32``.
-The banded plan's overflow fallback (JAX computes a conv whose window
-overflows with the fp32 gather) and the bf16 operands of
-``DI_SPARSE_IMPL=s2d``, a TPU layout, are not ported.
+``DI_BANDED_T`` and ``DI_BANDED_W`` set the plan whose overflow flag
+(``ops/sparse_conv.py::banded_overflow``) sends a sample-stage's convs to
+fp32, as JAX's ``_banded_apply`` does; they change no other number.
 
 The JAX package's other ``DI_*`` names choose among TPU implementations of
 the same math and have no counterpart here (ROADMAP.md lists them).
@@ -85,6 +94,8 @@ ENV = {
     "DI_I2P_DTYPE": ("i2p_dtype", "float32"),
     "DI_SPARSE_IMPL": ("sparse_impl", "banded"),
     "DI_SPARSE_TRAIN_IMPL": ("sparse_train_impl", "gather"),
+    "DI_BANDED_T": ("banded_t", "128"),
+    "DI_BANDED_W": ("banded_w", "512"),
     "DI_PALLAS_LOCATT": ("pallas_locatt", "1"),
     "DI_PALLAS_LOCATT_TRAIN": ("pallas_locatt_train", "0"),
     "DI_LOCATT_MXU": ("locatt_mxu", "bf16"),
@@ -116,6 +127,8 @@ class EvalLevers:
     i2p_dtype: str = "float32"
     sparse_impl: str = "banded"
     sparse_train_impl: str = "gather"
+    banded_t: int = 128
+    banded_w: str = "512"
     pallas_locatt: bool = True
     pallas_locatt_train: bool = False
     locatt_mxu: str = "bf16"
@@ -125,6 +138,13 @@ class EvalLevers:
             raise ValueError(f"i2p_sample must be 'nearest' or 'bilinear', not {self.i2p_sample!r}")
         if self.i2p_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"i2p_dtype must be 'float32' or 'bfloat16', not {self.i2p_dtype!r}")
+        if self.banded_t < 1 or min(self.banded_windows()) < 1:
+            raise ValueError(f"banded_t and banded_w must be positive, not {self.banded_t}, {self.banded_w!r}")
+
+    def banded_windows(self) -> tuple:
+        """DI_BANDED_W as JAX reads it (``models/sparse_encoder.py:58-62``):
+        the window of stage i is the i-th value, the last one repeating."""
+        return tuple(int(x) for x in self.banded_w.split(","))
 
     @classmethod
     def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "EvalLevers":
@@ -149,17 +169,27 @@ class EvalLevers:
         math but K2's bf16 operands."""
         return cls.from_env(PARITY)
 
+    def k1_numerics(self, train: bool, cuda: bool) -> str:
+        """The sparse encoder's submanifold convs in this mode, as JAX's
+        ``SparseEncoder`` resolves its implementation (train takes
+        DI_SPARSE_TRAIN_IMPL while DI_SPARSE_IMPL is ``banded``): ``banded``
+        (K1's bf16 variant, each tap's product rounded, the overflow
+        fallback) where the tensors are on CUDA (``cuda``), fp32 elsewhere,
+        as JAX runs it only on its TPU; ``s2d`` (bf16 operands, one fp32
+        sum) on every device; otherwise ``fp32``."""
+        impl = self.sparse_train_impl if train and self.sparse_impl == "banded" else self.sparse_impl
+        if impl == "banded":
+            return "banded" if cuda else "fp32"
+        return "s2d" if impl == "s2d" else "fp32"
+
     def bf16_kernels(self, train: bool, cuda: bool) -> tuple:
-        """(K1, K2): whether the sparse encoder's submanifold convs and the
-        local attention run on bf16 operands in this mode, where the
-        model's tensors are on CUDA (``cuda``); fp32 elsewhere, as the JAX
-        package computes fp32 off its TPU. As JAX's ``SparseEncoder``, train
-        takes DI_SPARSE_TRAIN_IMPL only while DI_SPARSE_IMPL is ``banded``."""
-        if not cuda:
-            return False, False
-        k1 = self.sparse_impl == "banded" and (not train or self.sparse_train_impl == "banded")
-        k2 = self.pallas_locatt and (not train or self.pallas_locatt_train) and self.locatt_mxu != "f32"
-        return k1, k2
+        """(K1, K2): whether the sparse encoder's submanifold convs run K1's
+        banded numerics (:meth:`k1_numerics`) and the local attention K2's
+        bf16 variant in this mode, where the model's tensors are on CUDA
+        (``cuda``); fp32 elsewhere, as the JAX package computes fp32 off its
+        TPU."""
+        k2 = cuda and self.pallas_locatt and (not train or self.pallas_locatt_train) and self.locatt_mxu != "f32"
+        return self.k1_numerics(train, cuda) == "banded", k2
 
     def as_env(self) -> dict:
         """The ``DI_*`` variables that give these settings."""

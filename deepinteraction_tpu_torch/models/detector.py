@@ -57,7 +57,8 @@ class DeepInteraction(nn.Module):
     its own, so with no ``DI_*`` variable set the model computes what the
     JAX package computes by default. The two Pallas kernels' bf16
     numerics (K1's and K2's bf16 variants) apply where the batch is on
-    CUDA (``EvalLevers.bf16_kernels``), as JAX applies them on its TPU."""
+    CUDA (``EvalLevers.bf16_kernels``), as JAX applies them on its TPU;
+    ``DI_SPARSE_IMPL=s2d`` on every device (``EvalLevers.k1_numerics``)."""
 
     def __init__(self, cfg: ModelConfig, input_shape, num_proposals: int | None = None,
                  levers: EvalLevers | None = None):
@@ -83,7 +84,7 @@ class DeepInteraction(nn.Module):
                 cfg.img_neck.out_channels,
                 cfg.img_neck.num_outs,
             )
-        self.pts_middle_encoder = SparseEncoder(cfg.pts_middle_encoder)
+        self.pts_middle_encoder = SparseEncoder(cfg.pts_middle_encoder, lv.banded_t, lv.banded_windows())
         nz, _, _ = self.pts_middle_encoder.out_shape()
         bev_c = cfg.pts_middle_encoder.output_channels * nz
         pb = cfg.pts_backbone
@@ -119,15 +120,17 @@ class DeepInteraction(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor], train: bool = False,
                 generator: torch.Generator | None = None) -> Dict[str, torch.Tensor]:
         fn = self._lidar_only if self.cfg.lidar_only else self._fusion
-        bf16 = self.levers.bf16_kernels(train, batch["points"].is_cuda)
+        cuda = batch["points"].is_cuda
+        k1, k2 = self.levers.bf16_kernels(train, cuda)
+        bf16 = "banded" if k1 else self.levers.k1_numerics(train, cuda), k2
         if train:
             return fn(batch, True, generator, bf16)
         with torch.no_grad():
             return fn(batch, False, None, bf16)
 
-    def _lidar_bev(self, batch, train: bool, k1_bf16: bool, dense_dtype=None):
-        """Voxelize -> sparse encoder (K1's bf16 variant with ``k1_bf16``)
-        -> SECOND + SECONDFPN outputs (with ``dense_dtype``, SECOND and
+    def _lidar_bev(self, batch, train: bool, k1: str, dense_dtype=None):
+        """Voxelize -> sparse encoder (K1's numerics ``k1``, ``EvalLevers.
+        k1_numerics``) -> SECOND + SECONDFPN outputs (with ``dense_dtype``, SECOND and
         SECONDFPN run in it and the outputs come back in fp32)."""
         vl = self.cfg.pts_voxel_layer
         cap = vl.max_voxels[0] if train else vl.max_voxels[1]
@@ -137,14 +140,16 @@ class DeepInteraction(nn.Module):
             max_voxels=cap,
         )
         vvalid = torch.arange(cap, device=vo.coords.device)[None] < vo.num_voxels[:, None]
-        bev = self.pts_middle_encoder(hard_simple_vfe(vo.voxels, vo.num_points), vo.coords, vvalid, train, k1_bf16)
+        bev = self.pts_middle_encoder(hard_simple_vfe(vo.voxels, vo.num_points), vo.coords, vvalid, train,
+                                      bf16=k1 == "banded", s2d=k1 == "s2d")
         if dense_dtype is None:
             return self.pts_neck(self.pts_backbone(bev, train), train)
         return [f.float() for f in self.pts_neck(self.pts_backbone(bev.to(dense_dtype), train), train)]
 
     def _lidar_only(self, batch, train: bool, generator, bf16):
         """JAX ``DeepInteraction._lidar_only``: ``shared_conv`` on the
-        512-channel neck map, then the decoder on it. ``bf16``: (K1, K2)."""
+        512-channel neck map, then the decoder on it. ``bf16``: (K1's
+        numerics, K2's bf16)."""
         pts_conv = self.shared_conv(self._lidar_bev(batch, train, bf16[0])[0])
         return self.pts_bbox_head((pts_conv, pts_conv), None, batch, num_proposals=self.num_proposals,
                                   train=train, generator=generator)

@@ -22,11 +22,18 @@ convs over it for K1's d/dfeat.
 (``subm_conv_gemm(..., bf16=True)``), as the JAX package's default
 ``DI_SPARSE_IMPL=banded`` runs them on its bf16 Pallas kernel on a TPU
 (``sparse_encoder.py:109-125``); the 3 strided convs and ``conv_out`` stay
-fp32, as JAX leaves them on the gather (``:143-167``). In train, d/dfeat is
-then the same bf16 conv over the inverse table and d/dW takes the features
-rounded to bf16 (JAX's ``_banded_bwd``). The caller decides (``levers.py::
-EvalLevers.bf16_kernels``). JAX's other layouts (``dense``, ``s2d``,
-``sgather``) are TPU experiments with no counterpart here.
+fp32, as JAX leaves them on the gather (``:143-167``). Each sample-stage's
+banded plan (``banded_t`` rows a tile, the stage's window from
+``banded_w``, JAX's ``DI_BANDED_T`` / ``DI_BANDED_W``) gives an overflow
+flag on the device (``ops/sparse_conv.py::banded_overflow``), and where it
+is set that sample-stage's convs compute fp32, as JAX's ``_banded_apply``
+falls back to the fp32 gather. In train, d/dfeat is then the same conv over
+the inverse table (flag included) and d/dW takes the features rounded to
+bf16 (JAX's ``_banded_bwd``). ``s2d=True`` runs the 17 on bf16 operands
+with one fp32 sum (``per_tap=False``), JAX's ``DI_SPARSE_IMPL=s2d``
+numerics, d/dfeat and d/dW likewise. The caller decides (``levers.py::
+EvalLevers.k1_numerics``). JAX's other layouts (``dense``, ``sgather``)
+compute fp32, as the gather.
 """
 
 from __future__ import annotations
@@ -53,19 +60,24 @@ def _bn(c: int) -> MaskedBatchNorm:
     return MaskedBatchNorm(c, BN_EPS, BN_MOM)
 
 
-def _conv(x, w, tables, valid, bf16: bool):
-    """K1 over each sample (its bf16 variant with ``bf16``): x [B, K, Cin],
-    tables [(nbr, inv)] per sample, valid [B, Ko] -> [B, Ko, Cout]."""
+def _conv(x, w, tables, valid, bf16: bool, s2d: bool = False):
+    """K1 over each sample (its bf16 variant with ``bf16`` or ``s2d``): x
+    [B, K, Cin], tables [(nbr, inv, ovf)] per sample, valid [B, Ko] -> [B,
+    Ko, Cout]."""
     return torch.stack([
-        subm_conv_gemm(x[i], nbr, w, valid[i], inv, bf16=bf16) for i, (nbr, inv) in enumerate(tables)
+        subm_conv_gemm(x[i], nbr, w, valid[i], inv, bf16=bf16 or s2d, per_tap=not s2d, ovf=ovf)
+        for i, (nbr, inv, ovf) in enumerate(tables)
     ])
 
 
-def _subm_tables(coords, valid, shape, with_inverse: bool):
+def _subm_tables(coords, valid, shape, with_inverse: bool, plan=None):
+    """Per sample (nbr, inv or None, ovf or None): with ``plan`` = (T, W),
+    the banded plan's overflow flag on the device."""
     out = []
     for c, v in zip(coords, valid):
         nbr = sc.subm_neighbor_table(sc.SparseTensor(None, c, v, shape))
-        out.append((nbr, sc.mirror_table(nbr) if with_inverse else None))
+        ovf = None if plan is None else sc.banded_overflow(nbr, v, *plan)
+        out.append((nbr, sc.mirror_table(nbr) if with_inverse else None, ovf))
     return out
 
 
@@ -75,8 +87,8 @@ class SubMConvBNReLU(nn.Module):
         self.w = _weight(27, cin, cout)
         self.bn = _bn(cout)
 
-    def forward(self, x, tables, valid, train: bool = False, bf16: bool = False):
-        return F.relu(self.bn(_conv(x, self.w, tables, valid, bf16), valid, train))
+    def forward(self, x, tables, valid, train: bool = False, bf16: bool = False, s2d: bool = False):
+        return F.relu(self.bn(_conv(x, self.w, tables, valid, bf16, s2d), valid, train))
 
 
 class SparseBasicBlock(nn.Module):
@@ -87,18 +99,19 @@ class SparseBasicBlock(nn.Module):
         self.bn1 = _bn(ch)
         self.bn2 = _bn(ch)
 
-    def forward(self, x, tables, valid, train: bool = False, bf16: bool = False):
-        y = F.relu(self.bn1(_conv(x, self.w1, tables, valid, bf16), valid, train))
-        y = self.bn2(_conv(y, self.w2, tables, valid, bf16), valid, train)
+    def forward(self, x, tables, valid, train: bool = False, bf16: bool = False, s2d: bool = False):
+        y = F.relu(self.bn1(_conv(x, self.w1, tables, valid, bf16, s2d), valid, train))
+        y = self.bn2(_conv(y, self.w2, tables, valid, bf16, s2d), valid, train)
         return F.relu(y + x)
 
 
 class SparseEncoder(nn.Module):
     STRIDED_PADS = ((1, 1, 1), (1, 1, 1), (0, 1, 1))
 
-    def __init__(self, cfg: SparseEncoderConfig):
+    def __init__(self, cfg: SparseEncoderConfig, banded_t: int = 128, banded_w=(512,)):
         super().__init__()
         self.cfg = cfg
+        self.banded_t, self.banded_w = banded_t, tuple(banded_w)
         specs = cfg.encoder_channels
         self.conv_input = SubMConvBNReLU(cfg.in_channels, cfg.base_channels)
         for i, blocks in enumerate(specs):
@@ -134,23 +147,29 @@ class SparseEncoder(nn.Module):
             ovalids.append(ov)
         return torch.stack(outs), ocoords, torch.stack(ovalids), oshape
 
-    def forward(self, voxel_feats, coords, valid, train: bool = False, bf16: bool = False):
+    def plan(self, stage: int):
+        """(T, W) of the banded plan at ``stage`` (JAX's ``banded_w``)."""
+        return self.banded_t, self.banded_w[min(stage, len(self.banded_w) - 1)]
+
+    def forward(self, voxel_feats, coords, valid, train: bool = False, bf16: bool = False, s2d: bool = False):
         """voxel_feats [B, K, Cin], coords [B, K, 3] (z, y, x) sorted by id,
         valid [B, K] -> BEV [B, ny/8, nx/8, C*nz]. ``train`` normalises
         with the batch's statistics and updates the running ones; ``bf16``
-        runs the submanifold convs on K1's bf16 variant."""
+        runs the submanifold convs on K1's bf16 variant with the banded
+        plan's overflow fallback, ``s2d`` on bf16 operands with one fp32
+        sum."""
         cfg = self.cfg
         shape = tuple(cfg.sparse_shape)
         specs = cfg.encoder_channels
         grad = torch.is_grad_enabled()
         coords = list(coords)
-        tables = _subm_tables(coords, valid, shape, grad)
-        feats = self.conv_input(voxel_feats, tables, valid, train, bf16)
+        tables = _subm_tables(coords, valid, shape, grad, self.plan(0) if bf16 else None)
+        feats = self.conv_input(voxel_feats, tables, valid, train, bf16, s2d)
         for i, blocks in enumerate(specs):
             last = i == len(specs) - 1
             n_basic = len(blocks) if last else len(blocks) - 1
             for j in range(n_basic):
-                feats = getattr(self, f"stage{i}_block{j}")(feats, tables, valid, train, bf16)
+                feats = getattr(self, f"stage{i}_block{j}")(feats, tables, valid, train, bf16, s2d)
             if last:
                 break
             feats, coords, valid, shape = self._down(
@@ -158,7 +177,7 @@ class SparseEncoder(nn.Module):
                 cfg.stage_capacities[i + 1], getattr(self, f"down{i}_w"), grad,
             )
             feats = F.relu(getattr(self, f"down{i}_bn")(feats, valid, train))
-            tables = _subm_tables(coords, valid, shape, grad)
+            tables = _subm_tables(coords, valid, shape, grad, self.plan(i + 1) if bf16 else None)
 
         feats, coords, valid, shape = self._down(
             feats, coords, valid, shape, (3, 1, 1), (2, 1, 1), (0, 0, 0), feats.shape[1],

@@ -26,7 +26,7 @@ import torch
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("subm_conv.cu", "local_attention.cu", "auction_lap.cu")
+SOURCES = ("subm_conv.cu", "subm_conv_bf16.cu", "local_attention.cu", "auction_lap.cu")
 HEADERS = ("tf32_mma.cuh", "bf16_mma.cuh")  # included by the sources: part of the build's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -38,7 +38,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # feat, nbr, w, valid, out, kin, ko, taps, cin, cout, stream
     "di_subm_conv_gemm": ([_P] * 5 + [_I] * 5 + [_P], _I),
-    "di_subm_conv_gemm_bf16": ([_P] * 5 + [_I] * 5 + [_P], _I),
+    # the same, then gate, taken, stream
+    "di_subm_conv_gemm_gated": ([_P] * 5 + [_I] * 5 + [_P] * 3, _I),
+    # feat, nbr, wt, valid, out, kin, ko, taps, cin, cout, per_tap, gate, taken, stream
+    "di_subm_conv_bf16": ([_P] * 5 + [_I] * 6 + [_P] * 3, _I),
     # feat, nbr, dy, partial, out, kin, ko, taps, cin, cout, chunks, stream
     "di_subm_conv_wgrad": ([_P] * 5 + [_I] * 6 + [_P], _I),
     # q, k, v, out, b, h, w, c, kernel, scale, stream

@@ -71,6 +71,33 @@ def subm_neighbor_table(st: SparseTensor, kernel=(3, 3, 3)) -> torch.Tensor:
     return torch.stack(cols, 1).int()
 
 
+def banded_overflow(nbr: torch.Tensor, valid: torch.Tensor, t: int = 128, w: int = 512) -> torch.Tensor:
+    """[] bool on the table's device: the overflow flag of the JAX banded
+    plan (``deepinteraction_tpu/ops/sparse_conv_banded.py::make_banded_plan``,
+    ``:73-95``, its ``ovf``) for tiles of ``t`` rows and a window of ``w``.
+    Each tile's 9 (dz, dy) groups of 3 x-taps share a window that starts at
+    the smallest row they reach (8-aligned, clipped to the padded output);
+    the flag is set where a hit lies ``w`` or more rows past its window's
+    start. JAX then computes the sample-stage's convs with the fp32 gather.
+    nbr [K, 27] int32 (K = miss), valid [K] bool. No host sync."""
+    k, taps = nbr.shape
+    if taps != 27:
+        raise ValueError(f"banded_overflow: a 3x3x3 submanifold table, not {taps} taps")
+    nt = -(-k // t)
+    kp = nt * t
+    rout = -(-(kp + 1 + w) // 512) * 512
+    nbrp = torch.full((kp, taps), k, dtype=torch.int32, device=nbr.device)
+    nbrp[:k] = torch.where(valid[:, None], nbr, torch.full_like(nbr, k))
+    miss = (nbrp == k).reshape(nt, t, 9, 3)
+    nbrp = nbrp.reshape(nt, t, 9, 3)
+    big = torch.iinfo(torch.int32).max
+    starts = torch.where(miss, big, nbrp).amin(dim=(1, 3))  # [nt, 9]
+    starts = torch.where(starts == big, 0, starts)
+    starts = (starts & ~7).clamp(0, rout - w)
+    local = torch.where(miss, -1, nbrp - starts[:, None, :, None])
+    return (local >= w).any()
+
+
 def mirror_table(nbr: torch.Tensor) -> torch.Tensor:
     """Inverse of a submanifold table: ``inv[:, d] = nbr[:, mirror(d)]``
     with ``mirror(d) = D - 1 - d`` (tap offset negated; the JAX backward's

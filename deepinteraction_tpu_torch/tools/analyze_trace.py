@@ -46,8 +46,8 @@ CATEGORIES = [
 ]
 OTHER = "other (nvJPEG, ...)"
 # the port's kernel functions (K2's backward is two: a query and a key pass)
-PORT_KERNELS = ("subm_conv_gemm", "subm_conv_wgrad", "sum_partials", "local_attn_fwd", "local_attn_bwd_query",
-                "local_attn_bwd_key")
+PORT_KERNELS = ("subm_conv_gemm", "subm_conv_bf16", "subm_conv_wgrad", "sum_partials", "local_attn_fwd",
+                "local_attn_bwd_query", "local_attn_bwd_key")
 STEP = re.compile(r"^ProfilerStep#\d+$")
 NO_SCOPE = "(no scope)"
 

@@ -101,7 +101,7 @@ def _sparse(seed, c, n_active=500, capacity=640):
     st = jsc.SparseTensor(jnp.asarray(feats), jnp.asarray(coords), jnp.asarray(valid), SHAPE)
     nbr = jsc.subm_neighbor_table(st)
     plan = scb.make_banded_plan(nbr, st.valid, T=128, W=512)
-    assert not bool(plan.ovf)  # the port has no overflow fallback (ROADMAP)
+    assert not bool(plan.ovf)  # bf16 here; the fallback's own inputs: test_torch_port_banded_plan.py
     return rng, st, nbr, plan
 
 

@@ -189,6 +189,39 @@ def test_subm_conv_gemm_bf16_matches_plain(cuda, k, cin, cout):
     assert torch.all(out[~args[3]] == 0)
 
 
+@pytest.mark.parametrize("k,cin,cout", [(160_000, 16, 16), (90_000, 32, 32), (60_000, 64, 64), (30_000, 128, 128),
+                                        (1_003, 5, 16), (2_999, 72, 40)])
+def test_subm_conv_s2d_matches_plain(cuda, k, cin, cout):
+    """``per_tap=False`` (DI_SPARSE_IMPL=s2d): bf16 operands, one fp32 sum."""
+    rng = np.random.default_rng(k + cin + cout + 1)
+    args = [torch.from_numpy(a).to(cuda) for a in _sparse_case(rng, k, cin, cout, 27)]
+    out = smc.subm_conv_gemm_bf16(*args, per_tap=False)
+    ref = smc.gathered_matmul(*args, bf16=True, per_tap=False)
+    assert (out - ref).abs().max().item() <= K1_TOL * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("overflow", [False, True])
+def test_subm_conv_gemm_bf16_gated(cuda, overflow):
+    """With the overflow flag both kernels launch and read it: set, the fp32
+    kernel computes the conv (its bits) and d/dfeat; clear, the bf16 one.
+    ``taken`` counts which ran, on the card."""
+    rng = np.random.default_rng(7)
+    feats, nbr, w, valid = (torch.from_numpy(a).to(cuda) for a in _sparse_case(rng, 20_000, 32, 32, 27))
+    ovf = torch.tensor(overflow, device=cuda)
+    inv = sc.inverse_table(nbr, feats.shape[0])
+    smc.taken(cuda).zero_()
+    before = smc.subm_conv_gemm.launches, smc.subm_conv_gemm_bf16.launches, smc.subm_conv_dgrad.launches
+    f = feats.clone().requires_grad_(True)
+    out = smc.subm_conv_gemm_bf16(f, nbr, w, valid, inv, ovf=ovf)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    after = smc.subm_conv_gemm.launches, smc.subm_conv_gemm_bf16.launches, smc.subm_conv_dgrad.launches
+    assert [a - b for a, b in zip(after, before)] == [1, 2, 1]
+    assert smc.taken(cuda).tolist() == ([2, 0] if overflow else [0, 2])
+    want = smc.subm_conv_gemm(feats, nbr, w, valid) if overflow else smc.subm_conv_gemm_bf16(feats, nbr, w, valid)
+    assert torch.equal(out.detach(), want)
+
+
 def test_subm_conv_gemm_bf16_backward_route(cuda):
     """With gradients on, d/dfeat is the bf16 variant over the inverse table
     with W^T (one more bf16 launch) and d/dW the fp32 kernel on the features
@@ -488,7 +521,9 @@ def test_tiny_pp_on_card_matches_cpu_path(cuda):
 def test_tiny_slice_at_the_defaults_runs_the_bf16_variants(cuda):
     """With the JAX package's defaults (no DI_* variable), eval on the card
     runs K1's bf16 variant for the 17 submanifold convs (the 4 strided ones
-    stay fp32) and K2's for every local attention; on the CPU, fp32."""
+    stay fp32; beside each of the 17 the fp32 kernel launches gated by the
+    banded plan's overflow flag, which the tiny frame's plans leave clear)
+    and K2's for every local attention; on the CPU, fp32."""
     cfg = tiny_config()
     model = DeepInteraction(cfg.model, cfg.data.padded_img_shape, cfg.test_num_proposals,
                             levers=EvalLevers()).eval()
@@ -496,10 +531,12 @@ def test_tiny_slice_at_the_defaults_runs_the_bf16_variants(cuda):
     batch = to_torch(make_synthetic_batch(cfg, b=1, seed=7), cuda)
     counters = (smc.subm_conv_gemm, smc.subm_conv_gemm_bf16, la.local_attn_fwd, la.local_attn_fwd_bf16)
     before = [c.launches for c in counters]
+    smc.taken(cuda).zero_()
     preds = model.to(cuda)(batch)
     torch.cuda.synchronize()
     k2 = 3 * cfg.model.imgpts_neck.num_layers
-    assert [c.launches - b for c, b in zip(counters, before)] == [4, 17, 0, k2]
+    assert [c.launches - b for c, b in zip(counters, before)] == [4 + 17, 17, 0, k2]
+    assert smc.taken(cuda).tolist() == [0, 17]
     assert all(torch.isfinite(v.float()).all() for v in preds.values())
 
 

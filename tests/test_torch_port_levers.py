@@ -84,7 +84,7 @@ BF16_TOL = 2e-2  # of scale
 EXACT = ("query_labels", "on_image_masks")
 # the JAX package's DI_* names that choose among TPU implementations of
 # the same math (ROADMAP.md)
-TPU_ONLY = re.compile(r"DI_(BANDED_\w+|NBR_\w+|GATHER_BWD\w*|I2P_UNROLL|I2P_CHUNK"
+TPU_ONLY = re.compile(r"DI_(NBR_\w+|GATHER_BWD\w*|I2P_UNROLL|I2P_CHUNK"
                       r"|MSDA_HEADS_MAJOR|MSDA_COMBINE|TPU_NATIVE_IO)$")
 
 
