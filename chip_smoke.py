@@ -269,7 +269,9 @@ defaults in eval (``DI_SPARSE_IMPL=banded``, ``DI_LOCATT_MXU=bf16``):
     bf16 plain version at the five submanifold conv shapes of phase 19's
     first realistic frame and at 9 random hits a row, and with
     ``per_tap=False`` (``DI_SPARSE_IMPL=s2d``) at the same shapes,
-    K2's (``local_attn_fwd_bf16``) at phase 5's four shapes, within
+    K2's (``local_attn_fwd_bf16``, the kernel of
+    ``csrc/local_attention_bf16.cu``, with its registers, shared memory and
+    warps an SM) at phase 5's four shapes, within
     K1_BF16_TOL / K2_BF16_TOL of scale and BF16_MOVED_SHARE of the outputs
     moved (s2d within K1_TOL); each with its time, the fp32 kernel's at the
     same inputs, its bound at the bf16 tensor-core rate and its launches a
@@ -2835,10 +2837,14 @@ def run_bf16(dev, paths: dict, smi: str) -> tuple:
         t = timing(lambda: la.local_attn_fwd_bf16(q, k, v, 9), lambda: la.local_attention(q, k, v, 9, bf16=True),
                    bound(4 * 4 * b * h * w * c, flops.k2_ops(shape, 9), "bf16"), n)
         t["fp32_ms"] = device_time_ms(lambda: la.local_attn_fwd(q, k, v, 9))
+        info = la.bf16_kernel_info(9)
         log(f"K2 local_attn_fwd_bf16 {list(shape)} k=9: max_abs_err={err:.3e} max_rel_err={rel:.3e} (tolerance "
             f"{K2_BF16_TOL}), {moved:.2e} of the outputs more than 1e-6 of scale apart (at most "
             f"{BF16_MOVED_SHARE}); {timing_text(t)} "
-            f"fp32_kernel_ms={t['fp32_ms']:.4f}")
+            f"fp32_kernel_ms={t['fp32_ms']:.4f}; kernel: {info['registers']} registers and {info['spill_bytes']} "
+            f"spilled bytes a thread, {info['shared_bytes']} shared bytes and {info['threads']} threads a block, "
+            f"{info['blocks_per_sm']} blocks = {info['warps_per_sm']} warps an SM")
+        t.update(info)
         assert rel <= K2_BF16_TOL and moved <= BF16_MOVED_SHARE, f"K2 bf16 {list(shape)}: {rel:.3e}, {moved:.2e}"
         k2["max_abs_err"] = max(k2["max_abs_err"], err)
         k2["shapes"].append(dict(t, shape=f"{list(shape)} k=9", max_rel_err=rel))
@@ -3048,7 +3054,7 @@ def main() -> int:
          "launches": bf16_paths[bf16_path]["subm_conv_gemm_bf16"], "path": bf16_path,
          "launches_by_path": by_path("subm_conv_gemm_bf16"), "library_ms": None},
         {"name": "local_attn_fwd_bf16", "route": "cuda",
-         "source": "deepinteraction_tpu_torch/csrc/local_attention.cu",
+         "source": "deepinteraction_tpu_torch/csrc/local_attention_bf16.cu",
          "replaces": "deepinteraction_tpu/ops/local_attention_pallas.py:58", **headline(k2_bf16, "[6, 112, 200, 128]"),
          "launches": bf16_paths[bf16_path]["local_attn_fwd_bf16"], "path": bf16_path,
          "launches_by_path": by_path("local_attn_fwd_bf16"), "library_ms": None},

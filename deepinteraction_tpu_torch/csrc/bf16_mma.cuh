@@ -1,8 +1,9 @@
 // bf16 products on mma.sync for the kernels' bf16 variants, which compute
 // what the JAX package's Pallas kernels compute on a TPU by default: bf16
 // operands, fp32 accumulation. K2's operands arrive in fp32 and are rounded
-// to bf16 in registers (round to nearest, ties to even, as XLA's convert);
-// K1's arrive in bf16 and reach the fragments by ldmatrix.
+// to bf16 (round to nearest, ties to even, as XLA's convert) as they are
+// staged into shared memory; K1's arrive in bf16. Both reach the fragments
+// by ldmatrix.
 
 #pragma once
 
@@ -41,6 +42,17 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* row) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
+// The same with each 8 x 8 matrix transposed: lane 4g + t receives
+// elements 2t and 2t + 1 of column g (rows 2t and 2t + 1), the B fragment of
+// a [k][n] matrix stored k-major
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(s)
                : "memory");

@@ -40,22 +40,12 @@
 // load while the tensor cores work. 66 KB of shared memory and at most 170
 // registers a thread let 3 blocks share an SM.
 //
-// The bf16 variant (BF16 = true, entry di_local_attn_fwd_bf16) computes what
-// the Pallas kernel computes by default (DI_LOCATT_MXU=bf16, :69-97): the
-// logits from q and k rounded to bf16, their products summed in fp32, then
-// times 1/sqrt(C); the softmax in fp32; the normalised probabilities p / sum
-// rounded to bf16 (normalised before the rounding, not after the product
-// with v), then the product with v rounded to bf16, summed in fp32. Same
-// tiles, slabs and bytes as the fp32 kernel; each product is one mma.sync
-// m16n8k16 bf16 (bf16_mma.cuh) instead of three m16n8k8 TF32: a 16-channel
-// slab is one k-step of Q K^T, and a halo row's 16 columns of P one k-step
-// of P V, the accumulator layout of S being the A fragment of m16n8k16 as
-// it stands.
+// The Pallas kernel's default numerics (DI_LOCATT_MXU=bf16) have a kernel
+// of their own, local_attention_bf16.cu (entry di_local_attn_fwd_bf16).
 
 #include <math.h>
 #include <stdint.h>
 
-#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -120,7 +110,7 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int KS, int VEC, bool BF16>
+template <int KS, int VEC>
 __global__ void __launch_bounds__(kThreads, 3)
     local_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, float* __restrict__ out,
@@ -168,46 +158,25 @@ __global__ void __launch_bounds__(kThreads, 3)
     if (st < nslab) {
       const float* q0 = buf + G::HALO + (2 * pr * kTW + 8 * cw + g) * kQKPitch + 2 * t;
       const float* k0 = buf + (8 * cw + g) * kQKPitch + 2 * t;
-      if constexpr (BF16) {
-        // one k-step: the lane's channels 2t, 2t+1 and 2t+8, 2t+9
-        const float2 qa = *reinterpret_cast<const float2*>(q0);
-        const float2 qb = *reinterpret_cast<const float2*>(q0 + kTW * kQKPitch);
-        const float2 qc = *reinterpret_cast<const float2*>(q0 + 8);
-        const float2 qd = *reinterpret_cast<const float2*>(q0 + kTW * kQKPitch + 8);
-        const uint32_t a[4] = {di::pack_bf16(qa.x, qa.y), di::pack_bf16(qb.x, qb.y), di::pack_bf16(qc.x, qc.y),
-                               di::pack_bf16(qd.x, qd.y)};
+#pragma unroll
+      for (int kk = 0; kk < kCS; kk += 8) {
+        uint32_t ah[4], al[4];
+        const float2 qa = *reinterpret_cast<const float2*>(q0 + kk);
+        const float2 qb = *reinterpret_cast<const float2*>(q0 + kTW * kQKPitch + kk);
+        di::split_tf32(qa.x, ah[0], al[0]);
+        di::split_tf32(qb.x, ah[1], al[1]);
+        di::split_tf32(qa.y, ah[2], al[2]);
+        di::split_tf32(qb.y, ah[3], al[3]);
 #pragma unroll
         for (int r = 0; r < NH; ++r) {
 #pragma unroll
           for (int nt = 0; nt < 2; ++nt) {
-            const float* kp = k0 + ((2 * pr + r) * kNCol + nt * 8) * kQKPitch;
-            const float2 ka = *reinterpret_cast<const float2*>(kp);
-            const float2 kb = *reinterpret_cast<const float2*>(kp + 8);
-            const uint32_t b[2] = {di::pack_bf16(ka.x, ka.y), di::pack_bf16(kb.x, kb.y)};
-            di::mma_bf16(s[r][nt], a, b);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < kCS; kk += 8) {
-          uint32_t ah[4], al[4];
-          const float2 qa = *reinterpret_cast<const float2*>(q0 + kk);
-          const float2 qb = *reinterpret_cast<const float2*>(q0 + kTW * kQKPitch + kk);
-          di::split_tf32(qa.x, ah[0], al[0]);
-          di::split_tf32(qb.x, ah[1], al[1]);
-          di::split_tf32(qa.y, ah[2], al[2]);
-          di::split_tf32(qb.y, ah[3], al[3]);
-#pragma unroll
-          for (int r = 0; r < NH; ++r) {
-#pragma unroll
-            for (int nt = 0; nt < 2; ++nt) {
-              const float2 kb = *reinterpret_cast<const float2*>(
-                  k0 + ((2 * pr + r) * kNCol + nt * 8) * kQKPitch + kk);
-              uint32_t bh[2], bl[2];
-              di::split_tf32(kb.x, bh[0], bl[0]);
-              di::split_tf32(kb.y, bh[1], bl[1]);
-              di::mma_split(s[r][nt], ah, al, bh, bl);
-            }
+            const float2 kb = *reinterpret_cast<const float2*>(
+                k0 + ((2 * pr + r) * kNCol + nt * 8) * kQKPitch + kk);
+            uint32_t bh[2], bl[2];
+            di::split_tf32(kb.x, bh[0], bl[0]);
+            di::split_tf32(kb.y, bh[1], bl[1]);
+            di::mma_split(s[r][nt], ah, al, bh, bl);
           }
         }
       }
@@ -247,20 +216,8 @@ __global__ void __launch_bounds__(kThreads, 3)
               if (e < 2) l0 += p;
               else l1 += p;
             }
-        if constexpr (BF16) {
-          // p / sum, rounded to bf16 before the product with v
-          const float den0 = quad_sum(l0), den1 = quad_sum(l1);
-#pragma unroll
-          for (int r = 0; r < NH; ++r)
-#pragma unroll
-            for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) s[r][nt][e] = di::round_bf16(s[r][nt][e] / (e < 2 ? den0 : den1));
-          inv0 = inv1 = 1.f;
-        } else {
-          inv0 = 1.f / quad_sum(l0);
-          inv1 = 1.f / quad_sum(l1);
-        }
+        inv0 = 1.f / quad_sum(l0);
+        inv1 = 1.f / quad_sum(l1);
       }
     } else {
       const int c0 = (st - nslab) * kCS;
@@ -270,39 +227,23 @@ __global__ void __launch_bounds__(kThreads, 3)
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[cn][e] = 0.f;
       const float* v0 = buf + (8 * cw + 2 * t) * kVPitch + g;
-      if constexpr (BF16) {
-        // A = P_r over the warp's 16 halo columns, one k-step
 #pragma unroll
-        for (int r = 0; r < NH; ++r) {
-          const uint32_t a[4] = {di::pack_bf16(s[r][0][0], s[r][0][1]), di::pack_bf16(s[r][0][2], s[r][0][3]),
-                                 di::pack_bf16(s[r][1][0], s[r][1][1]), di::pack_bf16(s[r][1][2], s[r][1][3])};
-          const float* vp = v0 + (2 * pr + r) * kNCol * kVPitch;
+      for (int r = 0; r < NH; ++r) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          // A = P_r with the k-step's columns permuted (see the note above)
+          uint32_t ah[4], al[4];
+          di::split_tf32(s[r][nt][0], ah[0], al[0]);
+          di::split_tf32(s[r][nt][2], ah[1], al[1]);
+          di::split_tf32(s[r][nt][1], ah[2], al[2]);
+          di::split_tf32(s[r][nt][3], ah[3], al[3]);
+          const float* vp = v0 + ((2 * pr + r) * kNCol + nt * 8) * kVPitch;
 #pragma unroll
           for (int cn = 0; cn < kCS / 8; ++cn) {
-            const uint32_t b[2] = {di::pack_bf16(vp[cn * 8], vp[kVPitch + cn * 8]),
-                                   di::pack_bf16(vp[8 * kVPitch + cn * 8], vp[9 * kVPitch + cn * 8])};
-            di::mma_bf16(o[cn], a, b);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int r = 0; r < NH; ++r) {
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            // A = P_r with the k-step's columns permuted (see the note above)
-            uint32_t ah[4], al[4];
-            di::split_tf32(s[r][nt][0], ah[0], al[0]);
-            di::split_tf32(s[r][nt][2], ah[1], al[1]);
-            di::split_tf32(s[r][nt][1], ah[2], al[2]);
-            di::split_tf32(s[r][nt][3], ah[3], al[3]);
-            const float* vp = v0 + ((2 * pr + r) * kNCol + nt * 8) * kVPitch;
-#pragma unroll
-            for (int cn = 0; cn < kCS / 8; ++cn) {
-              uint32_t bh[2], bl[2];
-              di::split_tf32(vp[cn * 8], bh[0], bl[0]);
-              di::split_tf32(vp[kVPitch + cn * 8], bh[1], bl[1]);
-              di::mma_split(o[cn], ah, al, bh, bl);
-            }
+            uint32_t bh[2], bl[2];
+            di::split_tf32(vp[cn * 8], bh[0], bl[0]);
+            di::split_tf32(vp[kVPitch + cn * 8], bh[1], bl[1]);
+            di::mma_split(o[cn], ah, al, bh, bl);
           }
         }
       }
@@ -330,46 +271,26 @@ __global__ void __launch_bounds__(kThreads, 3)
   }
 }
 
-template <int KS, int VEC, bool BF16>
+template <int KS, int VEC>
 int launch(const float* q, const float* k, const float* v, float* out, int b, int h,
            int w, int c, float scale, cudaStream_t stream) {
   const int smem = 2 * Geo<KS>::STAGE * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(local_attn_fwd_kernel<KS, VEC, BF16>,
+  cudaError_t err = cudaFuncSetAttribute(local_attn_fwd_kernel<KS, VEC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((w + kTW - 1) / kTW, (h + kTH - 1) / kTH, b);
-  local_attn_fwd_kernel<KS, VEC, BF16><<<grid, kThreads, smem, stream>>>(q, k, v, out, h, w, c, scale);
+  local_attn_fwd_kernel<KS, VEC><<<grid, kThreads, smem, stream>>>(q, k, v, out, h, w, c, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int KS, bool BF16>
+template <int KS>
 int launch_ks(const float* q, const float* k, const float* v, float* out, int b, int h,
               int w, int c, float scale, cudaStream_t stream) {
   const bool vec = c % 4 == 0 &&
                    ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-  return vec ? launch<KS, 4, BF16>(q, k, v, out, b, h, w, c, scale, stream)
-             : launch<KS, 1, BF16>(q, k, v, out, b, h, w, c, scale, stream);
-}
-
-template <bool BF16>
-int fwd_entry(const void* q, const void* k, const void* v, void* out, int b, int h, int w, int c,
-              int ks, float scale, void* stream) {
-  if (b <= 0 || h <= 0 || w <= 0 || c <= 0) return 0;
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  float* o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static_assert(kMaxKernel == 9, "the dispatch below lists every size");
-  switch (ks) {
-    case 1: return launch_ks<1, BF16>(qf, kf, vf, o, b, h, w, c, scale, s);
-    case 3: return launch_ks<3, BF16>(qf, kf, vf, o, b, h, w, c, scale, s);
-    case 5: return launch_ks<5, BF16>(qf, kf, vf, o, b, h, w, c, scale, s);
-    case 7: return launch_ks<7, BF16>(qf, kf, vf, o, b, h, w, c, scale, s);
-    case 9: return launch_ks<9, BF16>(qf, kf, vf, o, b, h, w, c, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return vec ? launch<KS, 4>(q, k, v, out, b, h, w, c, scale, stream)
+             : launch<KS, 1>(q, k, v, out, b, h, w, c, scale, stream);
 }
 
 }  // namespace
@@ -378,15 +299,21 @@ int fwd_entry(const void* q, const void* k, const void* v, void* out, int b, int
 extern "C" int di_local_attn_fwd(const void* q, const void* k, const void* v,
                                  void* out, int b, int h, int w, int c, int ks,
                                  float scale, void* stream) {
-  return fwd_entry<false>(q, k, v, out, b, h, w, c, ks, scale, stream);
-}
-
-// the same arguments (fp32 maps); bf16 operands, the probabilities rounded
-// to bf16 after their normalisation
-extern "C" int di_local_attn_fwd_bf16(const void* q, const void* k, const void* v,
-                                      void* out, int b, int h, int w, int c, int ks,
-                                      float scale, void* stream) {
-  return fwd_entry<true>(q, k, v, out, b, h, w, c, ks, scale, stream);
+  if (b <= 0 || h <= 0 || w <= 0 || c <= 0) return 0;
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  static_assert(kMaxKernel == 9, "the dispatch below lists every size");
+  switch (ks) {
+    case 1: return launch_ks<1>(qf, kf, vf, o, b, h, w, c, scale, s);
+    case 3: return launch_ks<3>(qf, kf, vf, o, b, h, w, c, scale, s);
+    case 5: return launch_ks<5>(qf, kf, vf, o, b, h, w, c, scale, s);
+    case 7: return launch_ks<7>(qf, kf, vf, o, b, h, w, c, scale, s);
+    case 9: return launch_ks<9>(qf, kf, vf, o, b, h, w, c, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 

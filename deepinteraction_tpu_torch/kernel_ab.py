@@ -30,7 +30,8 @@ main-path shapes:
 
 checks both builds against the plain versions at the tolerances of
 ``chip_smoke.py`` (the bf16 variants against their bf16 plain versions, and
-only where both builds have them) and times them in the order other, tree, tree, other
+only where both builds have them), says whether the two builds give the
+same bits (``equal=``), and times them in the order other, tree, tree, other
 (CUDA-event medians of ``chip_smoke.device_time_ms``). ``--mma-peak`` first
 times ``mma.sync`` m16n8k8 TF32 alone, on registers, across the card: the
 ceiling of the split-TF32 products. Run from the root of a checkout, here
@@ -42,12 +43,21 @@ against the fp32 CUDA-core d/dW of commit f0040e7::
     done
     python -m deepinteraction_tpu_torch.kernel_ab work_dirs/old_csrc
 
-and K1's bf16 path against its build before the bf16 kernel's redesign
+K1's bf16 path against its build before the bf16 kernel's redesign
 (commit e20e1a6, which still read fp32 operands)::
 
     mkdir -p work_dirs/bf16_csrc
     git archive e20e1a6 deepinteraction_tpu_torch/csrc | tar -x -C work_dirs/bf16_csrc --strip-components=2
     python -m deepinteraction_tpu_torch.kernel_ab work_dirs/bf16_csrc --match bf16
+
+and K2's three kernels against the build before the bf16 forward's
+redesign (commit b27c4af, where it shared the fp32 kernel's tiles): the
+bf16 forward's times, and ``equal=True`` on the fp32 forward and backward
+cases, which kept their code::
+
+    mkdir -p work_dirs/k2bf16_csrc
+    git archive b27c4af deepinteraction_tpu_torch/csrc | tar -x -C work_dirs/k2bf16_csrc --strip-components=2
+    python -m deepinteraction_tpu_torch.kernel_ab work_dirs/k2bf16_csrc --match local_attn
 
 ``--match`` selects the cases whose label holds its text; the realistic
 frame is written only where a bf16 K1 label can match. Fails without a
@@ -238,20 +248,26 @@ def bf16_frame(libs, dev, gen, k1_tol, bf16_tol, both_s2d: bool, match: str) -> 
 def in_turns(label: str, run, libs: dict, ref, tol, match: str = "") -> tuple:
     """Both builds against the plain result (each output of a tuple), then
     timed other, tree, tree, other; returns the mean ms of other and tree
-    (nothing is run, and 0.0 returned, where ``match`` is not in ``label``)."""
+    (nothing is run, and 0.0 returned, where ``match`` is not in ``label``).
+    The line also says whether the two builds give the same bits
+    (``torch.equal`` of every output)."""
     if match not in label:
         return 0.0, 0.0
+    outs = {}
     for name, lib in libs.items():
         got = run(lib)
-        for a, r in zip(got, ref) if isinstance(ref, tuple) else ((got, ref),):
+        outs[name] = got if isinstance(ref, tuple) else (got,)
+        for a, r in zip(outs[name], ref if isinstance(ref, tuple) else (ref,)):
             err = (a - r).abs().max().item()
             assert tol(a, r), f"{label}: {name} build max abs err {err:.3e} out of tolerance"
+    equal = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["tree"]))
+    del outs
     t = {name: [] for name in libs}
     for name in ("other", "tree", "tree", "other"):
         t[name].append(cs.device_time_ms(lambda: run(libs[name])))
     other, tree = (sum(t[n]) / 2 for n in ("other", "tree"))
     print(f"{label}: other_ms={t['other'][0]:.4f},{t['other'][1]:.4f} tree_ms={t['tree'][0]:.4f},{t['tree'][1]:.4f} "
-          f"tree/other={tree / other:.3f}", flush=True)
+          f"tree/other={tree / other:.3f} equal={equal}", flush=True)
     return other, tree
 
 

@@ -26,7 +26,7 @@ import torch
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("subm_conv.cu", "subm_conv_bf16.cu", "local_attention.cu", "auction_lap.cu")
+SOURCES = ("subm_conv.cu", "subm_conv_bf16.cu", "local_attention.cu", "local_attention_bf16.cu", "auction_lap.cu")
 HEADERS = ("tf32_mma.cuh", "bf16_mma.cuh")  # included by the sources: part of the build's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -47,6 +47,8 @@ _SIGNATURES = {
     # q, k, v, out, b, h, w, c, kernel, scale, stream
     "di_local_attn_fwd": ([_P] * 4 + [_I] * 5 + [ctypes.c_float, _P], _I),
     "di_local_attn_fwd_bf16": ([_P] * 4 + [_I] * 5 + [ctypes.c_float, _P], _I),
+    # kernel, out[5]
+    "di_local_attn_fwd_bf16_info": ([_I, ctypes.POINTER(_I)], _I),
     # q, k, v, dout, dq, dk, dv, lse, dsum, b, h, w, c, kernel, scale, stream
     "di_local_attn_bwd": ([_P] * 9 + [_I] * 5 + [ctypes.c_float, _P], _I),
     # cost, num_gt, eps_rel (host floats), out, rounds, n, p, g, phases, cap, stream

@@ -35,7 +35,10 @@ the Pallas kernel computes by default (``DI_LOCATT_MXU=bf16``): q, k and v
 rounded to bf16, the logits' products summed in fp32 and times 1/sqrt(C),
 the softmax in fp32, the probabilities normalised and then rounded to bf16,
 their products with v summed in fp32. On a CUDA tensor it launches the
-kernel's bf16 variant (``di_local_attn_fwd_bf16``), on a CPU tensor
+bf16 kernel of ``csrc/local_attention_bf16.cu`` (``di_local_attn_fwd_bf16``:
+q, k and v rounded to bf16 once as they are staged into shared memory, 8 x 16
+query tiles, producer and consumer warps; :func:`bf16_kernel_info` gives its
+registers and occupancy), on a CPU tensor
 :func:`local_attention` with ``bf16=True``; the two differ only where
 fp32 sums taken in different orders round to neighbouring bf16 values
 (1e-4 of the output's scale). Its backward is the fp32 one,
@@ -49,6 +52,7 @@ and 10 k^2 C (backward) a pixel (:func:`counted_ops`), on either device.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from concurrent.futures import ThreadPoolExecutor
@@ -121,6 +125,18 @@ def _launch(q, k, v, kernel, bf16):
     cuda_lib.check(code, "local_attn_fwd_bf16" if bf16 else "local_attn_fwd")
     (local_attn_fwd_bf16 if bf16 else local_attn_fwd).launches += 1
     return out
+
+
+def bf16_kernel_info(kernel: int) -> dict:
+    """Registers and spilled bytes a thread, shared bytes and threads a
+    block, blocks and warps an SM of the kernel that :func:`local_attn_fwd_bf16`
+    launches for ``kernel`` with 16-byte loads (C a multiple of 4, the four
+    maps 16-byte aligned). Needs the card."""
+    out = (ctypes.c_int * 5)()
+    cuda_lib.check(cuda_lib.library().di_local_attn_fwd_bf16_info(kernel, out), "local_attn_fwd_bf16_info")
+    regs, spill, smem, threads, blocks = out
+    return dict(registers=regs, spill_bytes=spill, shared_bytes=smem, threads=threads, blocks_per_sm=blocks,
+                warps_per_sm=blocks * threads // 32)
 
 
 def local_attention_bwd(q, k, v, dout, kernel: int):

@@ -240,8 +240,13 @@ def test_subm_conv_gemm_bf16_backward_route(cuda):
     assert (ww.grad - ref).abs().max().item() <= K1_TOL * ref.abs().max().item()
 
 
+# the last seven straddle the bf16 kernel's 8 x 16 query tiles in H and W
+# (one tile, one past, one short) and its 32-channel stages (C = 8, 40)
 @pytest.mark.parametrize("shape,kernel", [((6, 112, 200, 128), 9), ((1, 180, 180, 128), 9), ((2, 13, 21, 64), 5),
-                                          ((1, 3, 14, 128), 9), ((1, 7, 9, 40), 3), ((1, 9, 11, 6), 3)])
+                                          ((1, 3, 14, 128), 9), ((1, 7, 9, 40), 3), ((1, 9, 11, 6), 3),
+                                          ((1, 8, 16, 40), 9), ((1, 17, 33, 8), 9), ((2, 9, 31, 40), 7),
+                                          ((1, 15, 17, 8), 5), ((3, 23, 47, 40), 3), ((1, 16, 32, 8), 1),
+                                          ((1, 25, 15, 40), 9)])
 def test_local_attn_fwd_bf16_matches_plain(cuda, shape, kernel):
     g = torch.Generator(device="cpu").manual_seed(sum(shape) + kernel)
     q, k, v = (torch.randn(shape, generator=g).to(cuda) for _ in range(3))
@@ -250,6 +255,35 @@ def test_local_attn_fwd_bf16_matches_plain(cuda, shape, kernel):
     torch.cuda.synchronize()
     assert la.local_attn_fwd_bf16.launches == before + 1
     _bf16_close(out, la.local_attention(q, k, v, kernel, bf16=True))
+
+
+@pytest.mark.parametrize("c", [40, 128])
+def test_local_attn_fwd_bf16_sharp_softmax(cuda, c):
+    """q and k +-8, as in ``test_local_attn_fwd_sharp_softmax`` (exact in
+    bf16): the softmax is sharp, so probabilities fall below e^-60, into
+    fp32's denormals and to 0, where the bf16 kernel divides by the IEEE
+    division's full path."""
+    g = torch.Generator(device="cpu").manual_seed(c)
+    q, k, v = (torch.randn((1, 37, 45, c), generator=g).to(cuda) for _ in range(3))
+    q, k = 8 * torch.sign(q), 8 * torch.sign(k)
+    _bf16_close(la.local_attn_fwd_bf16(q, k, v, 9), la.local_attention(q, k, v, 9, bf16=True))
+
+
+def test_local_attn_fwd_bf16_unaligned(cuda):
+    """Contiguous maps whose storage starts 4 bytes past a 16-byte boundary,
+    at C = 128: the kernel's 4-byte loads (VEC = 1) at a channel count that
+    otherwise takes its 16-byte ones."""
+    shape = (1, 19, 35, 128)
+    n = shape[0] * shape[1] * shape[2] * shape[3]
+    g = torch.Generator(device="cpu").manual_seed(7)
+    q, k, v = (torch.empty(n + 1, device=cuda)[1:].view(shape).copy_(torch.randn(shape, generator=g))
+               for _ in range(3))
+    assert all(t.is_contiguous() and t.data_ptr() % 16 == 4 for t in (q, k, v))
+    before = la.local_attn_fwd_bf16.launches
+    out = la.local_attn_fwd_bf16(q, k, v, 9)
+    torch.cuda.synchronize()
+    assert la.local_attn_fwd_bf16.launches == before + 1
+    _bf16_close(out, la.local_attention(q, k, v, 9, bf16=True))
 
 
 def test_wrappers_reject_bad_inputs(cuda):
