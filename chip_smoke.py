@@ -242,7 +242,8 @@ lap_impl=auction``, ``ops/hungarian.py``) and its bf16 I2P keys
     exactly, every valid column assigned once, the objective within
     1.1 eps G of scipy's (eps = 1e-3 of the cost scale), two calls the
     same bits; its time against the plain version and the callback path
-    (``.cpu()``, scipy, ``.to(dev)``, fenced) and its rounds a problem;
+    (``.cpu()``, scipy, ``.to(dev)``, fenced), its rounds a problem and
+    its microseconds a round (the time over the largest round count);
     three ``fusion_base`` B=2 train steps with ``lap_impl=auction`` through
     ``TrainStep`` with the launch counters set to 0 just before and read
     just after (one ``auction_lap`` a step), finite losses, the first
@@ -2552,6 +2553,18 @@ def scipy_gaps(cost: torch.Tensor, num_gt: torch.Tensor, got: torch.Tensor) -> l
     return out
 
 
+def auction_cases(step_cost: torch.Tensor, step_ng: torch.Tensor, dev) -> dict:
+    """Phase 28's problems: {name: (cost [n, P, G], num_gt [n] int32)}, the
+    ``fusion_base`` train step's matching costs (recorded by
+    :func:`recorded_matching`) and a uniform(0, 10) 200 x 200 with 30 GTs."""
+    rng = np.random.default_rng(5)
+    return {"fusion_base train step costs": (step_cost.reshape(-1, *step_cost.shape[-2:]).contiguous(),
+                                             step_ng.reshape(-1).to(torch.int32).contiguous()),
+            "uniform(0, 10) 200 x 200, 30 GTs": (
+                torch.from_numpy(rng.uniform(0, 10, size=(1, 200, 200)).astype(np.float32)).to(dev),
+                torch.tensor([30], dtype=torch.int32, device=dev))}
+
+
 def run_auction(dev, paths: dict, train_pkl: str, metric_keys: set, smi: str) -> tuple:
     """Phase 28: the auction kernel against its plain version and scipy,
     the ``fusion_base`` train step and the train CLI with
@@ -2572,12 +2585,7 @@ def run_auction(dev, paths: dict, train_pkl: str, metric_keys: set, smi: str) ->
         cb_metrics, cb_targets = callback_step.backward(batch, torch.Generator(device=dev).manual_seed(1))
     torch.cuda.synchronize()
     (step_cost, step_ng, _), = calls
-    rng = np.random.default_rng(5)
-    cases = {"fusion_base train step costs": (step_cost.reshape(-1, *step_cost.shape[-2:]).contiguous(),
-                                              step_ng.reshape(-1).to(torch.int32).contiguous()),
-             "uniform(0, 10) 200 x 200, 30 GTs": (
-                 torch.from_numpy(rng.uniform(0, 10, size=(1, 200, 200)).astype(np.float32)).to(dev),
-                 torch.tensor([30], dtype=torch.int32, device=dev))}
+    cases = auction_cases(step_cost, step_ng, dev)
     rec = None
     for name, (c, ng) in cases.items():
         got, rounds = hungarian.auction_lap(c, ng)
@@ -2593,17 +2601,19 @@ def run_auction(dev, paths: dict, train_pkl: str, metric_keys: set, smi: str) ->
         ms = device_time_ms(lambda: hungarian.auction_lap(c, ng))
         plain_ms = host_ms(lambda: hungarian.auction_assign_plain(c, ng), 3)
         callback_ms = host_ms(lambda: hungarian.hungarian_assign(c, ng, impl="callback"))
+        us_round = ms * 1e3 / int(rounds.max())  # the CTAs run side by side: the longest chain sets the time
         log(f"auction_lap, {name} [{n}, {p}, {g}], num_gt {ng.tolist()}: equal to the plain version (assignment "
             f"and rounds) and twice the same bits; rounds a problem {rounds.tolist()}; {sum(e for *_, e in gaps)} "
             f"of {n} equal to scipy's, objective - scipy's "
             + ", ".join(f"{gap:.4g}" for gap, _, _ in gaps) + f" (bound {AUCTION_GAP} eps G: "
             + ", ".join(f"{AUCTION_GAP * bnd:.4g}" for _, bnd, _ in gaps) + f"); kernel_ms={ms:.4f} (CUDA events) "
-            f"plain_ms={plain_ms:.3f} callback_ms={callback_ms:.3f} (host clock, fenced) bound_ms="
-            f"{bd['bound_ms']:.6f} ({bd['bound_by']}), {smi}")
+            f"us_per_round={us_round:.4f} (kernel ms / the largest round count) plain_ms={plain_ms:.3f} "
+            f"callback_ms={callback_ms:.3f} (host clock, fenced) bound_ms={bd['bound_ms']:.6f} ({bd['bound_by']}), "
+            f"{smi}")
         if rec is None:  # the main path's shape
             rec = {"shape": f"[{b}, {cfg.model.pts_bbox_head.num_mmpi}, {p}, {g}]", "ms": ms, "plain_ms": plain_ms,
                    "callback_ms": callback_ms, **bd, "share": bd["bound_ms"] / ms, "max_abs_err": 0,
-                   "rounds": rounds.tolist()}
+                   "rounds": rounds.tolist(), "us_per_round": us_round}
 
     # three auction steps from the callback step's weights, counted
     acfg = dataclasses.replace(cfg, model=dataclasses.replace(

@@ -59,7 +59,26 @@ cases, which kept their code::
     git archive b27c4af deepinteraction_tpu_torch/csrc | tar -x -C work_dirs/k2bf16_csrc --strip-components=2
     python -m deepinteraction_tpu_torch.kernel_ab work_dirs/k2bf16_csrc --match local_attn
 
-``--match`` selects the cases whose label holds its text; the realistic
+The auction LAP (``auction_lap``) on phase 28's two problems (the
+``fusion_base`` B=2 train step's matching costs, recorded from one callback
+step of ``chip_smoke.py``'s seeded weights and batch, and a uniform(0, 10)
+200 x 200 cost with 30 GTs), both builds held to the plain version exactly
+in assignment and rounds, with the largest round count, microseconds a
+round, and a floor on a round's latency: an empty round (the kernel's
+block, its bitset count and its two barriers, no scans). It prints the
+kernel's ``-Xptxas -v`` lines first. Against the build before its
+redesign (commit 8c28268)::
+
+    mkdir -p work_dirs/auction_csrc
+    git archive 8c28268 deepinteraction_tpu_torch/csrc | tar -x -C work_dirs/auction_csrc --strip-components=2
+    python -m deepinteraction_tpu_torch.kernel_ab work_dirs/auction_csrc --match auction [--auction-sweep]
+
+``--auction-sweep`` also times the tree's kernel built at other block
+sizes and solo thresholds (``DI_AUCTION_THREADS``,
+``DI_AUCTION_SOLO_BELOW``) against the tree's build, in turns.
+
+``--match`` selects the cases whose label holds its text (a text that
+starts with ``auction`` selects the auction's cases alone); the realistic
 frame is written only where a bf16 K1 label can match. Fails without a
 CUDA device.
 """
@@ -71,6 +90,7 @@ import ctypes
 import glob
 import math
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -80,11 +100,13 @@ import torch
 import chip_smoke as cs
 
 from .configs import fusion_base_config, lidar_only_config
-from .ops import cuda_lib
+from .models.detector import DeepInteraction
+from .ops import cuda_lib, hungarian
 from .ops import local_attention as la
 from .ops import sparse_conv as sc
 from .ops import subm_conv as smc
-from .utils.synthetic import make_synthetic_batch, to_torch
+from .train.step import TrainStep
+from .utils.synthetic import init_weights, make_synthetic_batch, to_torch
 
 _MMA_PEAK = r"""
 #include "tf32_mma.cuh"
@@ -102,6 +124,39 @@ __global__ void mma_peak_kernel(float* out, int iters) {
 }
 extern "C" int mma_peak(void* out, int blocks, int iters, void* stream) {
   mma_peak_kernel<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<float*>(out), iters);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+# A floor on one auction round's latency: the kernel's block, its count
+# of the open-column bitset (a load, popc, redux.sync) and its two block
+# barriers with a shared atomicMax and a write between them, no scans.
+_EMPTY_ROUNDS = r"""
+#include <stdint.h>
+__global__ void empty_rounds_kernel(int* out, int rounds, int words) {
+  __shared__ uint32_t open[64];
+  __shared__ unsigned long long key[32];
+  const int lane = threadIdx.x & 31;
+  for (int q = threadIdx.x; q < 64; q += blockDim.x) open[q] = 0x55555555u;
+  if (threadIdx.x < 32) key[threadIdx.x] = 0ull;
+  __syncthreads();
+  int acc = 0;
+  for (int r = 0; r < rounds; ++r) {
+    int n = 0;
+    for (int q = lane; q < words; q += 32) n += __popc(open[q]);
+    n = __reduce_add_sync(0xffffffffu, n);
+    if (lane == 0) atomicMax(key + (r & 31), (unsigned long long)(n + r));
+    __syncthreads();
+    if (threadIdx.x == 0) open[r % words] ^= 1u;
+    __syncthreads();
+    acc += n;
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = acc;
+}
+extern "C" int empty_rounds(void* out, int blocks, int threads, int rounds, int words, void* stream) {
+  empty_rounds_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<int*>(out), rounds,
+                                                                               words);
   return static_cast<int>(cudaGetLastError());
 }
 """
@@ -148,6 +203,121 @@ def mma_peak(out_dir: str) -> None:
         flops = blocks * 4 * iters * 8 * 2 * 16 * 8 * 8
         print(f"mma.sync m16n8k8 tf32, {per_sm} blocks of 4 warps an SM: {ms:.4f} ms, "
               f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+
+
+def auction_settings() -> tuple:
+    """The tree's auction block size and solo threshold
+    (``DI_AUCTION_THREADS``, ``DI_AUCTION_SOLO_BELOW`` in its source)."""
+    with open(os.path.join(cuda_lib.CSRC_DIR, "auction_lap.cu")) as f:
+        src = f.read()
+    return tuple(int(re.search(rf"#define {name} (\d+)", src).group(1))
+                 for name in ("DI_AUCTION_THREADS", "DI_AUCTION_SOLO_BELOW"))
+
+
+def build_auction(out_dir: str, variants: list) -> dict:
+    """The tree's ``auction_lap.cu`` alone, once with ``-Xptxas -v`` (its
+    lines printed) and once per (threads, solo threshold) of ``variants``,
+    and the empty-round kernel; returns {(threads, solo): lib, "empty": lib}."""
+    nvcc, src = cuda_lib._nvcc(), os.path.join(cuda_lib.CSRC_DIR, "auction_lap.cu")
+    empty_src = os.path.join(out_dir, "empty_rounds.cu")
+    with open(empty_src, "w") as f:
+        f.write(_EMPTY_ROUNDS)
+    libs = {v: os.path.join(out_dir, f"libauction_{v[0]}_{v[1]}.so") for v in variants}
+    libs["empty"] = os.path.join(out_dir, "libempty_rounds.so")
+    procs = [subprocess.Popen([nvcc, *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                               os.path.join(out_dir, "auction_ptxas.o"), src],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)]
+    for (threads, solo), so in ((k, v) for k, v in libs.items() if k != "empty"):
+        procs.append(subprocess.Popen([nvcc, *cuda_lib.NVCC_FLAGS, f"-DDI_AUCTION_THREADS={threads}",
+                                       f"-DDI_AUCTION_SOLO_BELOW={solo}", "-shared", "-o", so, src],
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    procs.append(subprocess.Popen([nvcc, *cuda_lib.NVCC_FLAGS, "-shared", "-o", libs["empty"], empty_src],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    log = cuda_lib._run(procs[:1])
+    cuda_lib._run(procs[1:])
+    lines = [ln for ln in log.splitlines() if "ptxas" in ln or "spill" in ln]
+    print("auction_lap.cu -Xptxas -v:\n" + "\n".join(lines), flush=True)
+    out = {}
+    for key, so in libs.items():
+        lib = ctypes.CDLL(so)
+        if key == "empty":
+            lib.empty_rounds.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        else:
+            lib.di_auction_lap.argtypes, lib.di_auction_lap.restype = cuda_lib._SIGNATURES["di_auction_lap"]
+        out[key] = lib
+    return out
+
+
+def lap(lib, cost, num_gt, eps_phases=(1e-3,), cap=4096):
+    """The auction through ``lib``'s C interface, as ``hungarian.auction_lap``."""
+    n, p, g = cost.shape
+    eps = (ctypes.c_float * len(eps_phases))(*eps_phases)
+    out = torch.empty(n, p, dtype=torch.int32, device=cost.device)
+    rounds = torch.empty(n, dtype=torch.int32, device=cost.device)
+    cuda_lib.check(lib.di_auction_lap(cost.data_ptr(), num_gt.data_ptr(), eps, out.data_ptr(), rounds.data_ptr(),
+                                      n, p, g, len(eps_phases), cap, cuda_lib.stream_ptr(cost.device)),
+                   "auction_lap")
+    return out, rounds
+
+
+def step_costs(dev) -> tuple:
+    """The matching costs and ``num_gt`` of one ``fusion_base`` B=2 callback
+    train step, as ``chip_smoke.py`` phase 28 records them."""
+    cfg = fusion_base_config()
+    batch = to_torch(make_synthetic_batch(cfg, b=cfg.data.samples_per_device, seed=0, with_gt=True), dev)
+    model = DeepInteraction(cfg.model, cfg.data.padded_img_shape).to(dev)
+    init_weights(model, seed=0)
+    calls = []
+    with cs.recorded_matching(calls):
+        TrainStep(cfg, model, 1000, device=dev).backward(batch, torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    (cost, ng, _), = calls
+    return cost, ng
+
+
+def auction(libs: dict, dev, out_dir: str, match: str, sweep: bool) -> None:
+    """The auction cases (see the module's note)."""
+    tree_v = auction_settings()
+    threads = tree_v[0]
+    variants = [(t, s) for t in (128, 256, 512, 1024) for s in (0, 1, 2, 4)] if sweep else []
+    built = build_auction(out_dir, [v for v in variants if v != tree_v])
+    exact = lambda got, ref: torch.equal(got, ref)
+    for name, (c, ng) in cs.auction_cases(*step_costs(dev), dev).items():
+        label = f"auction_lap {name} {list(c.shape)}"
+        if match not in label:
+            continue
+        want = hungarian.auction_assign_plain(c, ng, with_rounds=True)
+        rounds = int(want[1].max())
+        other, tree = in_turns(label, lambda lib: lap(lib, c, ng), libs, want, exact, match)
+        empty = torch.empty(c.shape[0], dtype=torch.int32, device=dev)
+        words = -(-c.shape[1] // 32)
+        floor = cs.device_time_ms(lambda: built["empty"].empty_rounds(
+            empty.data_ptr(), c.shape[0], threads, rounds, words, cuda_lib.stream_ptr(dev)))
+        print(f"{label}: largest round count {rounds}, rounds {want[1].tolist()}; us a round: other "
+              f"{other * 1e3 / rounds:.4f}, tree {tree * 1e3 / rounds:.4f}, empty round ({threads} threads) "
+              f"{floor * 1e3 / rounds:.4f}", flush=True)
+        # where the rounds' time goes: the tree's kernel stopped after `cap`
+        # rounds (cap 0: the staging, the scale and the output, or the
+        # host's rate of calls where that is slower)
+        caps = sorted({k for k in (0, 1, 2, 4, 8, 16, 32, 64, 128, 256) if k < rounds} | {rounds})
+        curve = [cs.device_time_ms(lambda: lap(libs["tree"], c, ng, cap=k)) for k in caps]
+        print(f"{label}: tree ms by round cap: " + ", ".join(f"{k}: {t:.4f}" for k, t in zip(caps, curve)),
+              flush=True)
+        # the open costed columns (each a warp's scan) at the start of each
+        # round of the problem with the most rounds, from its assignment
+        # after that many rounds, averaged over the curve's spans
+        worst = int(want[1].argmax())
+        n_gt = int(ng[worst])
+        opens = [n_gt - int((lap(libs["tree"], c[worst:worst + 1], ng[worst:worst + 1], cap=k)[0] >= 0).sum())
+                 for k in range(rounds)]
+        spans = list(zip(caps, caps[1:]))
+        print(f"{label}: problem {worst} ({n_gt} GTs), open costed columns a round, mean over rounds: "
+              + ", ".join(f"{a + 1}-{b}: {sum(opens[a:b]) / (b - a):.2f}" for a, b in spans), flush=True)
+        for v in variants:
+            lib = libs["tree"] if v == tree_v else built[v]
+            _, t = in_turns(f"{label} threads={v[0]} solo_below={v[1]}", lambda lb: lap(lb, c, ng),
+                            {"other": libs["tree"], "tree": lib}, want, exact)
+            print(f"  threads={v[0]} solo_below={v[1]}: {t * 1e3 / rounds:.4f} us a round", flush=True)
 
 
 # the bf16 entry of the builds before the bf16 kernel's redesign: fp32
@@ -276,6 +446,8 @@ def main() -> None:
     p.add_argument("other", help="directory of .cu sources with the same C interface")
     p.add_argument("--mma-peak", action="store_true", help="time mma.sync TF32 alone first")
     p.add_argument("--match", default="", help="run only the cases whose label holds this text, e.g. wgrad")
+    p.add_argument("--auction-sweep", action="store_true",
+                   help="with the auction cases, time other block sizes and solo thresholds too")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device")
@@ -300,6 +472,11 @@ def main() -> None:
                 return rel <= tol and moved <= cs.BF16_MOVED_SHARE
             return close
 
+        auction_only = args.match.startswith("auction")
+        if auction_only or not args.match:
+            auction(libs, dev, tmp, args.match, args.auction_sweep)
+            if auction_only:
+                return
         both_bf16 = all(hasattr(lib, "di_local_attn_fwd_bf16") for lib in libs.values())
         k1_bf16 = all(hasattr(lib, "di_subm_conv_bf16") or hasattr(lib, "di_subm_conv_gemm_bf16")
                       for lib in libs.values())

@@ -53,6 +53,8 @@ _SIGNATURES = {
     "di_local_attn_bwd": ([_P] * 9 + [_I] * 5 + [ctypes.c_float, _P], _I),
     # cost, num_gt, eps_rel (host floats), out, rounds, n, p, g, phases, cap, stream
     "di_auction_lap": ([_P, _P, ctypes.POINTER(ctypes.c_float), _P, _P] + [_I] * 5 + [_P], _I),
+    # p, g -> 1 where the benefits are staged in shared memory, 0 where read from L2
+    "di_auction_lap_staged": ([_I, _I], _I),
     "di_error_string": ([_I], ctypes.c_char_p),
 }
 

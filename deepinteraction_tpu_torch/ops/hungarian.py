@@ -11,7 +11,8 @@ Two implementations, chosen as the JAX package chooses them, by
   with a relative epsilon, on the cost's device with no host round trip.
   On a CUDA tensor :func:`auction_lap` launches the kernel of
   ``csrc/auction_lap.cu`` (one CTA per problem runs every round on the
-  card) or raises; on a CPU tensor :func:`auction_assign_plain` runs, a
+  card, a warp per open column over benefits staged in shared memory) or
+  raises; on a CPU tensor :func:`auction_assign_plain` runs, a
   vectorised transcription of JAX's rounds in the same float32 operation
   order, so that both give JAX's assignment itself, ties included, and not
   merely an equally good one.
@@ -32,7 +33,8 @@ import torch
 from . import cuda_lib
 
 IMPLS = ("callback", "auction")
-# the kernel keeps 6 words a row in shared memory (prices, bids, owners, ...)
+# the kernel keeps 8 words a row in shared memory (prices, owners, the row
+# pass's keys and bidders), and the benefits too where they fit
 MAX_ROWS = 2048
 MAX_PHASES = 8  # eps phases the kernel takes with its launch
 

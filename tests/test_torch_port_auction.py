@@ -9,12 +9,14 @@ hungarian.py``, ``targets/assign.py``) against the JAX package, on the CPU.
   single row and on two eps phases; on the same cases every valid column
   is assigned once and the objective is within eps * G of scipy's (eps =
   1e-3 of the cost scale, with 10 % for float32 prices).
-- The kernel's rounds (``csrc/auction_lap.cu``) written out thread by
-  thread in float32 numpy scalars (one column's scan for its best row,
-  top and runner-up; one row's scan over the bids in column order; the
-  two update passes) equal the plain version on the small cases: the
-  kernel is held to the plain version itself on the card
-  (``tests/test_torch_port_kernels.py``, ``chip_smoke.py``).
+- The kernel's rounds (``csrc/auction_lap.cu``) written out step by step
+  in float32 numpy scalars (each open column's scan by 32 lanes merged as
+  the warp's redux.sync steps merge them, one shared scan for the columns
+  without a cost, the row pass by the atomicMax of (bid key, ~column))
+  equal the plain version on the small cases, a mostly-dummy one and one
+  whose real columns tie the dummies: the kernel is held to the plain
+  version itself on the card (``tests/test_torch_port_kernels.py``,
+  ``chip_smoke.py``).
 - ``build_targets`` with ``lap_impl=auction`` against JAX ``build_targets``
   on the same ``tiny_config`` predictions and GT: labels and weights
   exactly, the regression and IoU targets, heatmap and mean IoU at 1e-5;
@@ -77,10 +79,16 @@ CASES = {  # name: () -> (cost [..., P, G], num_gt [...], eps_phases)
     "constant": lambda: (np.full((50, 20), 2.5, np.float32), np.int32(20), (EPS_REL,)),
     "one_row": lambda: (np.array([[3.0]], np.float32), np.int32(1), (EPS_REL,)),
     "two_phases": lambda: (_seeded(30, 30, 0, high=10.0, seed=3), np.int32(25), (1e-2, EPS_REL)),
+    # 59 of 64 columns dummies (three of them with costs past num_gt)
+    "mostly_dummies": lambda: (_seeded(64, 8, 0, seed=13), np.int32(5), (EPS_REL,)),
+    # zero costs: real columns see the dummies' benefit (-0 against +0)
+    # and tie with their bids, so the smaller (real) column must win
+    "dummy_ties": lambda: (np.random.default_rng(17).integers(0, 2, size=(40, 12)).astype(np.float32),
+                           np.int32(12), (EPS_REL,)),
 }
 # the cases whose kernel rounds the test writes out in Python
 EMULATED = [k for k in CASES if k.startswith(("p8_", "p20_", "p30_"))] + [
-    "zero_gt", "one_row", "two_phases", "integer_ties"]
+    "zero_gt", "one_row", "two_phases", "integer_ties", "mostly_dummies", "dummy_ties"]
 
 
 def _objective(cost, a):
@@ -112,52 +120,93 @@ def test_auction_plain_equals_jax(case):
         assert _objective(c, a) <= _objective(c, ref) + GAP_SLACK * eps * ng, case
 
 
+_FULL = 0xFFFFFFFF
+
+
+def _key(v):
+    """The kernel's order-preserving key of a float32, -0 keyed as +0."""
+    u = int((v + np.float32(0.0)).view(np.uint32))
+    return (~u & _FULL) if u & 0x80000000 else u | 0x80000000
+
+
+def _unkey(k):
+    return np.uint32(k & 0x7FFFFFFF if k & 0x80000000 else ~k & _FULL).view(np.float32)
+
+
+def _warp_bid(ben, price, eps):
+    """One warp's bid for a column of benefits ``ben`` [P] (float32): lane l
+    scans rows l, l + 32, ... in order for (top, its first row, runner-up),
+    then the lanes merge as the kernel's redux.sync steps do: the runner-up
+    over the other rows is the largest of every lane's runner-up, the tops
+    below the largest, and the largest itself where two lanes hold it.
+    -> (row, bid)."""
+    p = len(price)
+    lanes = []
+    for lane in range(32):
+        top = second = np.float32(-np.inf)
+        best = lane if lane < p else _FULL
+        for i in range(lane, p, 32):
+            v = ben[i] - price[i]
+            if v > top:
+                second, top, best = top, v, i
+            elif v > second:
+                second = v
+        lanes.append((_key(top), best, _key(second)))
+    # first the largest top and runner-up; then the best row, the tops
+    # below the largest and how many lanes hold it
+    t = max(tk for tk, _, _ in lanes)
+    s_all = max(sk for _, _, sk in lanes)
+    bi = min(b if tk == t else _FULL for tk, b, _ in lanes)
+    t_below = max(tk if tk < t else 0 for tk, _, _ in lanes)
+    tied = sum(tk == t for tk, _, _ in lanes)
+    hi, lo = _unkey(t), _unkey(max(s_all, t_below, t if tied > 1 else 0))
+    if not np.isfinite(lo):
+        lo = hi
+    return bi, (price[bi] + (hi - lo)) + eps
+
+
 def _kernel_rounds(cost, ng, phases, cap=4096):
     """``auction_kernel`` of ``csrc/auction_lap.cu`` for one problem, its
-    loops written out in float32 numpy scalars: (assignment [P], rounds)."""
-    f32 = np.float32
+    steps written out in float32 numpy scalars: (assignment [P], rounds).
+
+    A round: the open columns with a cost (j < min(ng, G)) each bid through
+    :func:`_warp_bid`; the columns without one (padded real columns and the
+    dummies) bid once, as their smallest open member; each bidder takes the
+    atomicMax of (key of its bid, ~column) on its row, and the one holding
+    its row's maximum hands the row over (the previous owner reopens, the
+    price becomes the winner's bid). Which warp scans which column, and in
+    what order the atomics land, does not change the result."""
     p, g_in = cost.shape
-    g = p
-    ben = np.zeros((p, g), f32)
-    ben[:, :min(ng, g_in)] = -cost[:, :min(ng, g_in)]
-    scale = max(f32(1e-6), np.abs(ben).max())
-    price = np.zeros(p, f32)
+    gr = max(0, min(ng, g_in))
+    ben = np.zeros((p, p), np.float32)
+    ben[:, :gr] = -cost[:, :gr]
+    scale = max(np.float32(1e-6), np.abs(ben).max())
+    price = np.zeros(p, np.float32)
+    zero = np.zeros(p, np.float32)
     total = 0
     for eps_rel in phases:
-        eps = f32(eps_rel) * scale
-        assign = np.full(g, -1)
+        eps = np.float32(eps_rel) * scale
+        open_ = np.ones(p, bool)
+        owner = np.full(p, -1)
         r = 0
-        while (assign < 0).any() and r < cap:
-            best, bid = np.zeros(g, int), np.full(g, -np.inf, f32)
-            for j in np.nonzero(assign < 0)[0]:  # one thread a column
-                vals = ben[:, j] - price  # elementwise float32
-                top = second = f32(-np.inf)
-                for i, v in enumerate(vals):
-                    if v > top:
-                        second, top, best[j] = top, v, i
-                    elif v > second:
-                        second = v
-                if not np.isfinite(second):
-                    second = top
-                bid[j] = (price[best[j]] + (top - second)) + eps
-            row_bid, win = np.full(p, -np.inf, f32), np.full(p, g)
-            for i in range(p):  # one thread a row, columns in order
-                for j in range(g):
-                    if best[j] == i and bid[j] > row_bid[i]:
-                        row_bid[i], win[i] = bid[j], j
-            for j in range(g):
-                if assign[j] >= 0 and win[assign[j]] < g:
-                    assign[j] = -1
-            for i in range(p):
-                if win[i] < g:
-                    assign[win[i]], price[i] = i, row_bid[i]
+        while open_.any() and r < cap:
+            bidders = [int(j) for j in np.nonzero(open_[:gr])[0]]
+            const = np.nonzero(open_[gr:])[0]
+            bids = [(j, *_warp_bid(ben[:, j], price, eps)) for j in bidders]
+            if len(const):
+                bids.append((gr + int(const[0]), *_warp_bid(zero, price, eps)))
+            row_key = {}
+            for j, row, b in bids:
+                row_key[row] = max(row_key.get(row, 0), _key(b) << 32 | (_FULL - j))
+            for j, row, b in bids:
+                if row_key[row] == _key(b) << 32 | (_FULL - j):
+                    prev, owner[row], price[row] = owner[row], j, b
+                    open_[j] = False
+                    if prev >= 0:
+                        open_[prev] = True
             r += 1
         total += r
-    owner = np.full(p, -1, np.int32)
-    for j in range(min(ng, g)):
-        if assign[j] >= 0:
-            owner[assign[j]] = j
-    return owner, total
+    return np.where((owner >= 0) & (owner < ng), owner, -1).astype(np.int32), total
 
 
 @pytest.mark.parametrize("case", EMULATED)

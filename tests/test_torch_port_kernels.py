@@ -638,6 +638,10 @@ AUCTION_CASES = {  # name: (cost [n, P, G], num_gt [n], eps phases)
     "constant": lambda r: (np.full((1, 50, 20), 2.5), [20], (1e-3,)),
     "one_row": lambda r: (np.array([[[3.0]]]), [1], (1e-3,)),
     "two_phases": lambda r: (r.uniform(0, 10, (2, 30, 30)), [25, 30], (1e-2, 1e-3)),
+    # too large to stage in shared memory: the benefits are read from L2
+    "l2_branch": lambda r: (r.uniform(0, 5, (2, 1024, 600)), [600, 150], (1e-3,)),
+    # from 199 dummy columns to none: the one shared dummy scan and its churn
+    "dummy_churn": lambda r: (r.uniform(0, 3, (4, 200, 200)), [1, 5, 100, 200], (1e-3,)),
 }
 
 
@@ -661,6 +665,14 @@ def test_auction_lap_equals_plain(cuda, case):
     assert torch.equal(hungarian.auction_assign(cost, num_gt, phases), got)
     for a, ng in zip(got.cpu(), num_gt.tolist()):
         assert sorted(a[a >= 0].tolist()) == list(range(ng))
+
+
+def test_auction_lap_branches(cuda):
+    """The main path's [200, 200] problems stage their benefits in shared
+    memory; ``l2_branch``'s [1024, 600] ones do not fit and read L2."""
+    lib = cuda_lib.library()
+    assert lib.di_auction_lap_staged(200, 200) == 1
+    assert lib.di_auction_lap_staged(1024, 600) == 0
 
 
 def test_auction_lap_refuses_more_columns_than_rows(cuda):
