@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from .configs import BBoxCoderConfig, DecoderConfig
 from .ops.nms import nms_keep
 from .targets.coder import TransFusionBBoxCoder
+from .utils.spans import span
 
 
 class Detections(NamedTuple):
@@ -32,13 +33,14 @@ def get_bboxes(
     num_proposals: int,
 ) -> Detections:
     p = num_proposals
-    one_hot = F.one_hot(preds["query_labels"].long(), dcfg.num_classes).float()
-    score = torch.sigmoid(preds["heatmap"][:, -p:]) * preds["query_heatmap_score"] * one_hot
-    dec = TransFusionBBoxCoder(ccfg).decode(
-        {k: preds[k][:, -p:] for k in ("center", "height", "dim", "rot", "vel")}
-        | {"heatmap": score}
-    )
-    keep = dec.in_range
-    if dcfg.nms_type is not None:
-        keep = nms_keep(dec.boxes, dec.scores, dec.labels, keep, dcfg.nms_type, dcfg.pre_maxsize)
-    return Detections(dec.boxes, dec.scores, dec.labels, keep)
+    with span("di.get_bboxes"):
+        one_hot = F.one_hot(preds["query_labels"].long(), dcfg.num_classes).float()
+        score = torch.sigmoid(preds["heatmap"][:, -p:]) * preds["query_heatmap_score"] * one_hot
+        dec = TransFusionBBoxCoder(ccfg).decode(
+            {k: preds[k][:, -p:] for k in ("center", "height", "dim", "rot", "vel")}
+            | {"heatmap": score}
+        )
+        keep = dec.in_range
+        if dcfg.nms_type is not None:
+            keep = nms_keep(dec.boxes, dec.scores, dec.labels, keep, dcfg.nms_type, dcfg.pre_maxsize)
+        return Detections(dec.boxes, dec.scores, dec.labels, keep)

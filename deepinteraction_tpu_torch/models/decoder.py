@@ -41,6 +41,7 @@ from ..ops.roi_align import roi_align, roi_align_views
 from ..targets.coder import TransFusionBBoxCoder
 from ..utils.boxes import corners as box_corners
 from ..utils.geometry import transform_points
+from ..utils.spans import span
 from .layers import BatchNorm, ConvBNReLU, Conv2d, MLP1d, TorchMHA
 
 
@@ -268,7 +269,9 @@ class PointRCNNBlock(nn.Module):
         crn = box_corners(boxes)[..., :2]  # [B, P, 8, 2]
         ccfg = self.coder.cfg
         scale = ccfg.voxel_size[0] * ccfg.out_size_factor
-        coor = (crn - crn.new_tensor(ccfg.pc_range[:2])) / scale
+        with span("di.sync.decoder.pc_range"):
+            origin = crn.new_tensor(ccfg.pc_range[:2])
+        coor = (crn - origin) / scale
         rect = torch.cat([coor.amin(2), coor.amax(2)], -1)
         rois = torch.stack([
             roi_align(bev_feat[i], rect[i], output_size=7, spatial_scale=1.0) for i in range(b)

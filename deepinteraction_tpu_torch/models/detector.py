@@ -39,6 +39,7 @@ from torch import nn
 from ..configs import ModelConfig
 from ..levers import EvalLevers
 from ..ops.voxelize import hard_simple_vfe, voxelize_batched
+from ..utils.spans import span
 from .decoder import Decoder
 from .fpn import FPN
 from .fusion_transformer import FusionTransformerPP
@@ -140,19 +141,23 @@ class DeepInteraction(nn.Module):
             max_voxels=cap,
         )
         vvalid = torch.arange(cap, device=vo.coords.device)[None] < vo.num_voxels[:, None]
-        bev = self.pts_middle_encoder(hard_simple_vfe(vo.voxels, vo.num_points), vo.coords, vvalid, train,
-                                      bf16=k1 == "banded", s2d=k1 == "s2d")
-        if dense_dtype is None:
-            return self.pts_neck(self.pts_backbone(bev, train), train)
-        return [f.float() for f in self.pts_neck(self.pts_backbone(bev.to(dense_dtype), train), train)]
+        vfe = hard_simple_vfe(vo.voxels, vo.num_points)
+        with span("di.sparse_encoder"):
+            bev = self.pts_middle_encoder(vfe, vo.coords, vvalid, train, bf16=k1 == "banded", s2d=k1 == "s2d")
+        if dense_dtype is not None:
+            bev = bev.to(dense_dtype)
+        with span("di.bev"):
+            outs = self.pts_neck(self.pts_backbone(bev, train), train)
+        return outs if dense_dtype is None else [f.float() for f in outs]
 
     def _lidar_only(self, batch, train: bool, generator, bf16):
         """JAX ``DeepInteraction._lidar_only``: ``shared_conv`` on the
         512-channel neck map, then the decoder on it. ``bf16``: (K1's
         numerics, K2's bf16)."""
         pts_conv = self.shared_conv(self._lidar_bev(batch, train, bf16[0])[0])
-        return self.pts_bbox_head((pts_conv, pts_conv), None, batch, num_proposals=self.num_proposals,
-                                  train=train, generator=generator)
+        with span("di.decoder"):
+            return self.pts_bbox_head((pts_conv, pts_conv), None, batch, num_proposals=self.num_proposals,
+                                      train=train, generator=generator)
 
     def _fusion(self, batch, train: bool, generator, bf16):
         """JAX ``DeepInteraction.__call__``: image branch, LiDAR BEV, I2P
@@ -169,15 +174,16 @@ class DeepInteraction(nn.Module):
         dense = torch.bfloat16 if (self.levers.dense_bf16 and not train) else None
         imgs = batch["images"].reshape(b * v, *batch["images"].shape[2:])
         train_img = train and cfg.img_backbone.frozen_stages < 0
-        if dense is not None and cfg.img_backbone.type == "resnet":
-            imgs = imgs.to(dense)
-        feats = self.img_backbone(imgs, train_img, generator)
-        if dense is not None:
-            feats = [f.to(dense) for f in feats]
-        # ++ reads FPN levels 0-1, v1 level 0
-        img_feats = [f.reshape(b, v, *f.shape[1:]) for f in self.img_neck(feats, num_levels=2 if pp else 1)]
-        if dense is not None:
-            img_feats = [f.float() for f in img_feats]
+        with span("di.img_branch"):
+            if dense is not None and cfg.img_backbone.type == "resnet":
+                imgs = imgs.to(dense)
+            feats = self.img_backbone(imgs, train_img, generator)
+            if dense is not None:
+                feats = [f.to(dense) for f in feats]
+            # ++ reads FPN levels 0-1, v1 level 0
+            img_feats = [f.reshape(b, v, *f.shape[1:]) for f in self.img_neck(feats, num_levels=2 if pp else 1)]
+            if dense is not None:
+                img_feats = [f.float() for f in img_feats]
 
         neck_outs = self._lidar_bev(batch, train, bf16[0], dense)
 
@@ -196,8 +202,12 @@ class DeepInteraction(nn.Module):
             pillar_valid=torch.arange(cap, device=imgs.device)[None] < po.num_voxels[:, None],
         )
         if pp:
-            new_img, (pts_conv, new_pts) = self.imgpts_neck(img_feats, neck_outs, mmri_batch, train, generator)
+            with span("di.ppneck"):
+                new_img, (pts_conv, new_pts) = self.imgpts_neck(img_feats, neck_outs, mmri_batch, train, generator)
         else:
-            new_img, (pts_conv, new_pts) = self.imgpts_neck(img_feats[0], neck_outs[0], mmri_batch, train, bf16[1])
-        return self.pts_bbox_head((pts_conv, new_pts), new_img, mmri_batch, num_proposals=self.num_proposals,
-                                  train=train, generator=generator)
+            with span("di.mmri"):
+                new_img, (pts_conv, new_pts) = self.imgpts_neck(img_feats[0], neck_outs[0], mmri_batch, train,
+                                                                bf16[1])
+        with span("di.decoder"):
+            return self.pts_bbox_head((pts_conv, new_pts), new_img, mmri_batch, num_proposals=self.num_proposals,
+                                      train=train, generator=generator)

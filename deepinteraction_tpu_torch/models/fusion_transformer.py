@@ -47,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs import MMRIEncoderConfig
 from ..ops.deform_attn import MSDeformableAttention
 from ..utils.geometry import grid_sample_2d, transform_points
+from ..utils.spans import span
 from .layers import Conv2d, TorchMHA, TransFFN
 from .mmri_encoder import MMRI_I2P, bev_warp, bevwarp_grid, i2p_geometry
 
@@ -142,7 +143,8 @@ class PolarI2P(nn.Module):
         r = int((r1 - r0) / rstep)
         ih, iw = self.input_shape
         dev, dt = pts_map.device, pts_map.dtype
-        pcr = torch.tensor(self.pc_range, dtype=dt, device=dev)
+        with span("di.sync.polar_i2p.pc_range"):
+            pcr = torch.tensor(self.pc_range, dtype=dt, device=dev)
         img_pos = sine_pos_2d(h, w, c // 2, dev)  # [h, w, C]
         ray_pos = sine_pos_2d(r, w, c // 2, dev)  # [r, w, C]
         depths = r0 + rstep * (torch.arange(r, dtype=dt, device=dev) + 0.5)  # bin centres

@@ -52,6 +52,7 @@ from ..utils.geometry import (
     take_rows,
     transform_points,
 )
+from ..utils.spans import grad_span, span
 from .layers import Conv2d, ConvBNReLU
 
 # pillars per rematerialised I2P chunk in train mode (the JAX chunk size)
@@ -282,7 +283,13 @@ class MMRI_I2P(nn.Module):
                 out, any_key = attend(qh, feat, *chunk(0, kp))
             has_key = any_key & pillar_valid[i]
             bev = lidar_feat.new_zeros(hb, wb, c)
-            bev[coor[has_key, 1], coor[has_key, 2]] = out[has_key]
+            with span("di.sync.i2p.values"):
+                vals = grad_span(out[has_key], "di.sync.i2p.values.grad")
+            with span("di.sync.i2p.rows"):
+                rows = coor[has_key, 1]
+            with span("di.sync.i2p.cols"):
+                cols = coor[has_key, 2]
+            bev[rows, cols] = vals
             outs.append(bev)
         return torch.stack(outs)
 
@@ -291,7 +298,8 @@ def _linspace(start: float, stop: float, n: int, device, dtype) -> torch.Tensor:
     """jnp.linspace's arithmetic: start + i * step, exact endpoint."""
     step = (stop - start) / (n - 1) if n > 1 else 0.0
     out = start + torch.arange(n, device=device, dtype=dtype) * step
-    out[-1] = stop
+    with span("di.sync.linspace.end"):
+        out[-1] = stop
     return out
 
 
@@ -310,7 +318,8 @@ def bevwarp_grid(points, points_mask, lidar2img, img2lidar, lidar_aug, lidar_aug
     hc, wc = feat_shape
     ih, iw = input_shape
     dev, dt = points.device, points.dtype
-    pcr = torch.tensor(pc_range, dtype=dt, device=dev)
+    with span("di.sync.bevwarp.pc_range"):
+        pcr = torch.tensor(pc_range, dtype=dt, device=dev)
     gx = _linspace(0.0, iw - 1.0, wc, dev, dt)[None, :].expand(hc, wc)
     gy = _linspace(0.0, ih - 1.0, hc, dev, dt)[:, None].expand(hc, wc)
     uvs, oks = [], []
@@ -380,14 +389,16 @@ class MMRIEncoderLayer(nn.Module):
 
     def forward(self, img_feat, lidar_feat, batch, warp_grid, i2p_geom, train: bool = False, bf16: bool = False):
         b, v = img_feat.shape[:2]
-        i2p = self.i2p(lidar_feat, img_feat, batch["pillar_coords"], batch["pillar_valid"], i2p_geom, train)
+        with span("di.mmri.i2p"):
+            i2p = self.i2p(lidar_feat, img_feat, batch["pillar_coords"], batch["pillar_valid"], i2p_geom, train)
         p2p = self.p_iml(lidar_feat, lidar_feat, train, bf16)
         p_aug = self.p_out_proj(torch.cat([i2p, p2p], -1), train)
         new_lidar = self.p_integration(torch.cat([p_aug, lidar_feat], -1), train)
 
-        warped = bev_warp(lidar_feat, warp_grid)
         flat = img_feat.reshape(b * v, *img_feat.shape[2:])
-        p2i = self.p2i_local(flat, warped.reshape(b * v, *warped.shape[2:]), train, bf16)
+        with span("di.mmri.p2i"):
+            warped = bev_warp(lidar_feat, warp_grid)
+            p2i = self.p2i_local(flat, warped.reshape(b * v, *warped.shape[2:]), train, bf16)
         i2i = self.i_iml(flat, flat, train, bf16)
         i_aug = self.i_out_proj(torch.cat([p2i, i2i], -1), train)
         new_img = self.i_integration(torch.cat([i_aug, flat], -1), train)

@@ -46,6 +46,7 @@ from ..configs import SparseEncoderConfig
 
 from ..ops import sparse_conv as sc
 from ..ops.subm_conv import subm_conv_gemm
+from ..utils.spans import span
 from .layers import MaskedBatchNorm
 
 BN_EPS = 1e-3
@@ -74,10 +75,11 @@ def _subm_tables(coords, valid, shape, with_inverse: bool, plan=None):
     """Per sample (nbr, inv or None, ovf or None): with ``plan`` = (T, W),
     the banded plan's overflow flag on the device."""
     out = []
-    for c, v in zip(coords, valid):
-        nbr = sc.subm_neighbor_table(sc.SparseTensor(None, c, v, shape))
-        ovf = None if plan is None else sc.banded_overflow(nbr, v, *plan)
-        out.append((nbr, sc.mirror_table(nbr) if with_inverse else None, ovf))
+    with span("di.sparse.tables"):
+        for c, v in zip(coords, valid):
+            nbr = sc.subm_neighbor_table(sc.SparseTensor(None, c, v, shape))
+            ovf = None if plan is None else sc.banded_overflow(nbr, v, *plan)
+            out.append((nbr, sc.mirror_table(nbr) if with_inverse else None, ovf))
     return out
 
 
@@ -138,10 +140,11 @@ class SparseEncoder(nn.Module):
         coords, valid [B, Ko], out shape)."""
         outs, ocoords, ovalids = [], [], []
         for i in range(feats.shape[0]):
-            oc, ov, oshape = sc.downsample_sites(coords[i], valid[i], shape, kernel, stride, pad, capacity)
-            st = sc.SparseTensor(feats[i], coords[i], valid[i], shape)
-            snbr = sc.strided_neighbor_table(st, oc, ov, kernel, stride, pad)
-            inv = sc.inverse_table(snbr, feats.shape[1]) if with_inverse else None
+            with span("di.sparse.tables"):
+                oc, ov, oshape = sc.downsample_sites(coords[i], valid[i], shape, kernel, stride, pad, capacity)
+                st = sc.SparseTensor(feats[i], coords[i], valid[i], shape)
+                snbr = sc.strided_neighbor_table(st, oc, ov, kernel, stride, pad)
+                inv = sc.inverse_table(snbr, feats.shape[1]) if with_inverse else None
             outs.append(subm_conv_gemm(feats[i], snbr, w, ov, inv))
             ocoords.append(oc)
             ovalids.append(ov)

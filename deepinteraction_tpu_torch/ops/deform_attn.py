@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.geometry import take_rows
+from ..utils.spans import span
 from .dropout import apply_dropout
 
 
@@ -73,7 +74,8 @@ def joint_topk_sample(v: torch.Tensor, offsets: torch.Tensor, weights: torch.Ten
     wk = wk / wk.sum(-1, keepdim=True)
     off = torch.gather(offsets.reshape(b, nq, h, l * p, 2), 3, idx[..., None].expand(*idx.shape, 2))
     lvl = idx // p
-    hw = torch.tensor(spatial_shapes, device=dev)  # [L, 2] as (H, W)
+    with span("di.sync.msda.shapes"):
+        hw = torch.tensor(spatial_shapes, device=dev)  # [L, 2] as (H, W)
     start = torch.cumsum(hw.prod(-1), 0) - hw.prod(-1)
     hh, ww, st = hw[lvl, 0], hw[lvl, 1], start[lvl]  # each [B, Nq, h, kj]
     ref = reference_points[:, :, None].expand(b, nq, h, l, 2)
@@ -142,7 +144,8 @@ class MSDeformableAttention(nn.Module):
             v_l = v[:, start:start + hh * ww].reshape(b, hh, ww, h, hd)
             v_l = v_l.permute(0, 3, 4, 1, 2).reshape(b * h, hd, hh, ww)
             start += hh * ww
-            wh = offsets.new_tensor([ww, hh])
+            with span("di.sync.msda.level_wh"):
+                wh = offsets.new_tensor([ww, hh])
             loc = reference_points[:, :, None, li, None, :] + offsets[:, :, :, li] / wh  # [B, Nq, h, p, 2]
             grid = (loc * 2.0 - 1.0).permute(0, 2, 1, 3, 4).reshape(b * h, nq, p, 2)
             sampled = F.grid_sample(v_l, grid, mode="bilinear", padding_mode="zeros",

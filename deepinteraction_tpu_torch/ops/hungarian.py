@@ -30,6 +30,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from . import cuda_lib
 
 IMPLS = ("callback", "auction")
@@ -63,8 +64,13 @@ def hungarian_assign(cost: torch.Tensor, num_gt: torch.Tensor, impl: str = "call
         return auction_assign(cost, num_gt)
     if impl != "callback":
         raise ValueError(f"lap_impl={impl!r}: expected one of {IMPLS}")
-    got = lap_host(cost.detach().float().cpu().numpy(), num_gt.detach().cpu().numpy())
-    return torch.from_numpy(got).to(cost.device)
+    with span("di.sync.lap.cost"):
+        host_cost = cost.detach().float().cpu().numpy()
+    with span("di.sync.lap.num_gt"):
+        host_num_gt = num_gt.detach().cpu().numpy()
+    got = lap_host(host_cost, host_num_gt)
+    with span("di.sync.lap.assignment"):
+        return torch.from_numpy(got).to(cost.device)
 
 
 def _problems(cost: torch.Tensor, num_gt) -> tuple:

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs import DataConfig
+from ..utils.spans import span
 from . import jpeg
 
 
@@ -46,23 +47,29 @@ def prepare_images(pixels: Sequence[torch.Tensor], flips: Sequence[bool], d: Dat
     """Decoded RGB ``uint8`` images [h, w, 3] (one device) -> float32
     [N, pad_h, pad_w, 3]: resized to ``img_scale``, flipped where asked,
     normalised, zero-padded. Images of one size are resized in one call."""
-    target_w, target_h = d.img_scale
-    ph, pw = d.padded_img_shape
-    dev = pixels[0].device
-    mean = torch.tensor(d.img_norm_mean, dtype=torch.float32, device=dev)
-    std = torch.tensor(d.img_norm_std, dtype=torch.float32, device=dev)
-    out = torch.zeros((len(pixels), ph, pw, 3), dtype=torch.float32, device=dev)
-    groups = {}
-    for i, p in enumerate(pixels):
-        groups.setdefault(tuple(p.shape), []).append(i)
-    for idx in groups.values():
-        x = torch.stack([pixels[i] for i in idx]).permute(0, 3, 1, 2).float()
-        x = F.interpolate(x, size=(target_h, target_w), mode="bilinear", align_corners=False, antialias=False)
-        x = x.permute(0, 2, 3, 1)
-        flip = torch.tensor([bool(flips[i]) for i in idx], device=dev)
-        x = torch.where(flip[:, None, None, None], x.flip(2), x)
-        out[idx, :target_h, :target_w] = (x - mean) / std
-    return out
+    with span("di.image_stage"):
+        target_w, target_h = d.img_scale
+        ph, pw = d.padded_img_shape
+        dev = pixels[0].device
+        with span("di.sync.images.mean"):
+            mean = torch.tensor(d.img_norm_mean, dtype=torch.float32, device=dev)
+        with span("di.sync.images.std"):
+            std = torch.tensor(d.img_norm_std, dtype=torch.float32, device=dev)
+        out = torch.zeros((len(pixels), ph, pw, 3), dtype=torch.float32, device=dev)
+        groups = {}
+        for i, p in enumerate(pixels):
+            groups.setdefault(tuple(p.shape), []).append(i)
+        for idx in groups.values():
+            x = torch.stack([pixels[i] for i in idx]).permute(0, 3, 1, 2).float()
+            x = F.interpolate(x, size=(target_h, target_w), mode="bilinear", align_corners=False, antialias=False)
+            x = x.permute(0, 2, 3, 1)
+            with span("di.sync.images.flip"):
+                flip = torch.tensor([bool(flips[i]) for i in idx], device=dev)
+            x = torch.where(flip[:, None, None, None], x.flip(2), x)
+            x = (x - mean) / std
+            with span("di.sync.images.rows"):  # the list of rows goes to the device
+                out[idx, :target_h, :target_w] = x
+        return out
 
 
 def process_images(jpegs: Sequence[Sequence], lidar2img: np.ndarray, flips: Sequence[bool], d: DataConfig,

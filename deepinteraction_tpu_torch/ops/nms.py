@@ -23,6 +23,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from .rotated_iou import iou_bev
 
 # nuScenes per-class NMS tasks (deepinteraction_decoder.py:575-580): a task
@@ -89,9 +90,13 @@ def batched_keep(boxes: torch.Tensor, scores: torch.Tensor, task_valid: torch.Te
         sup = torch.stack([iou > t for t in thresholds])  # mmdet3d nms_gpu's overlap test
         if pre_max_size is not None:
             valid = valid & (torch.arange(n, device=boxes.device) < pre_max_size)
-    host = torch.cat([sup.flatten(), valid.flatten()]).cpu().numpy()  # the batch's one transfer
+    with span("di.sync.nms.suppression"):
+        host = torch.cat([sup.flatten(), valid.flatten()]).cpu().numpy()  # the batch's one transfer
     keep_sorted = greedy_keep(host[: sup.numel()].reshape(sup.shape), host[sup.numel():].reshape(valid.shape))
-    return torch.zeros_like(task_valid).scatter(2, by_task, torch.from_numpy(keep_sorted).to(boxes.device))
+    out = torch.zeros_like(task_valid)
+    with span("di.sync.nms.keep"):
+        keep = torch.from_numpy(keep_sorted).to(boxes.device)
+    return out.scatter(2, by_task, keep)
 
 
 def nms_keep(boxes: torch.Tensor, scores: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor,
@@ -100,7 +105,11 @@ def nms_keep(boxes: torch.Tensor, scores: torch.Tensor, labels: torch.Tensor, va
     a task with radius <= 0 keeps its valid boxes, every other task runs
     circle or rotated NMS over its own classes (``inference.py:62-83`` of
     the JAX package)."""
-    masks = [torch.isin(labels, labels.new_tensor(t["indices"])) & valid for t in tasks]
+    masks = []
+    for t in tasks:
+        with span("di.sync.nms.task_classes"):
+            classes = labels.new_tensor(t["indices"])
+        masks.append(torch.isin(labels, classes) & valid)
     keep = torch.zeros_like(valid)
     for t, m in zip(tasks, masks):
         if t["radius"] <= 0:

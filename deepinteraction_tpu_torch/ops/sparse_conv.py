@@ -17,6 +17,7 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
+from ..utils.spans import grad_span, span
 from .subm_conv import gathered_matmul  # noqa: F401  (the plain version of K1)
 
 
@@ -42,10 +43,13 @@ def dense_index_map(coords: torch.Tensor, valid: torch.Tensor, shape) -> torch.T
     empty). 340 MB at the full 41x1440x1440 grid."""
     nz, ny, nx = shape
     k = coords.shape[0]
-    c = coords[valid].long()
+    with span("di.sync.sparse.active_coords"):
+        c = coords[valid].long()
     ids = (c[:, 0] * ny + c[:, 1]) * nx + c[:, 2]
     dense = torch.full((nz * ny * nx,), k, dtype=torch.int32, device=coords.device)
-    dense[ids] = torch.arange(k, dtype=torch.int32, device=coords.device)[valid]
+    with span("di.sync.sparse.active_rows"):
+        rows = torch.arange(k, dtype=torch.int32, device=coords.device)[valid]
+    dense[ids] = rows
     return dense
 
 
@@ -176,7 +180,8 @@ def downsample_sites(coords, valid, shape, kernel, stride, padding, out_capacity
     first = torch.ones_like(s_ids, dtype=torch.bool)
     first[1:] = s_ids[1:] != s_ids[:-1]
     first &= s_ids != sentinel
-    ids = s_ids[first][:out_capacity]
+    with span("di.sync.sparse.down_sites"):
+        ids = s_ids[first][:out_capacity]
     n_out = ids.shape[0]
     out_ids = torch.zeros(out_capacity, dtype=s_ids.dtype, device=s_ids.device)
     out_ids[:n_out] = ids
@@ -191,6 +196,9 @@ def to_dense_bev(st: SparseTensor) -> torch.Tensor:
     nz, ny, nx = st.shape
     c = st.features.shape[1]
     dense = st.features.new_zeros(nz, ny, nx, c)
-    co = st.coords[st.valid].long()
-    dense[co[:, 0], co[:, 1], co[:, 2]] = st.features[st.valid]
+    with span("di.sync.sparse.bev_coords"):
+        co = st.coords[st.valid].long()
+    with span("di.sync.sparse.bev_features"):
+        feats = grad_span(st.features[st.valid], "di.sync.sparse.bev_features.grad")
+    dense[co[:, 0], co[:, 1], co[:, 2]] = feats
     return dense.permute(1, 2, 3, 0).reshape(ny, nx, c * nz)

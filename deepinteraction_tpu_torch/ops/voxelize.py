@@ -12,6 +12,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.spans import span
+
 
 class VoxelizedOutput(NamedTuple):
     voxels: torch.Tensor  # [max_voxels, max_pts, D], zero padded
@@ -59,14 +61,17 @@ def voxelize(
     first = torch.ones_like(valid_s)
     first[1:] = lin_s[1:] != lin_s[:-1]
     first &= valid_s
-    num_kept = min(int(first.sum().item()), max_voxels)
+    with span("di.sync.voxelize.num_kept"):
+        num_kept = min(int(first.sum().item()), max_voxels)
 
     idx = torch.arange(n, device=dev, dtype=torch.int32)
 
     # starts[r] = sorted index of voxel r's first point; the first dropped
     # voxel's start (or the count of valid points) closes the last segment
-    starts = idx[first][: num_kept + 1]
-    total_valid = int(valid_s.sum().item())
+    with span("di.sync.voxelize.starts"):
+        starts = idx[first][: num_kept + 1]
+    with span("di.sync.voxelize.total_valid"):
+        total_valid = int(valid_s.sum().item())
     ends = torch.cat([starts[1:], starts.new_full((1,), total_valid)])[:num_kept]
     starts = starts[:num_kept]
     counts = torch.zeros(max_voxels, dtype=torch.int32, device=dev)
@@ -81,18 +86,16 @@ def voxelize(
 
     coords = torch.full((max_voxels, 3), -1, dtype=torch.int32, device=dev)
     coords[:num_kept] = izyx_s[slot_start[:num_kept]]
-    return VoxelizedOutput(
-        voxels=voxels,
-        num_points=counts,
-        coords=coords,
-        num_voxels=torch.tensor(num_kept, dtype=torch.int32, device=dev),
-    )
+    with span("di.sync.voxelize.num_voxels"):
+        num_voxels = torch.tensor(num_kept, dtype=torch.int32, device=dev)
+    return VoxelizedOutput(voxels=voxels, num_points=counts, coords=coords, num_voxels=num_voxels)
 
 
 def voxelize_batched(points, points_mask, **kw) -> VoxelizedOutput:
     """``voxelize`` per sample of [B, N, D] points, stacked."""
-    outs = [voxelize(points[i], points_mask[i], **kw) for i in range(points.shape[0])]
-    return VoxelizedOutput(*(torch.stack(f) for f in zip(*outs)))
+    with span("di.voxelize"):
+        outs = [voxelize(points[i], points_mask[i], **kw) for i in range(points.shape[0])]
+        return VoxelizedOutput(*(torch.stack(f) for f in zip(*outs)))
 
 
 def hard_simple_vfe(voxels: torch.Tensor, num_points: torch.Tensor) -> torch.Tensor:

@@ -32,6 +32,7 @@ from ..ops.gaussian import draw_heatmap, gaussian_radius
 from ..ops.hungarian import hungarian_assign
 from ..ops.rotated_iou import iou_3d
 from ..parallel.mesh import all_reduce
+from ..utils.spans import span
 from .coder import TransFusionBBoxCoder
 from .losses import clip_sigmoid, gaussian_focal_loss, sigmoid_focal_loss, weighted_l1_loss
 
@@ -84,12 +85,14 @@ def build_targets(
     scores = torch.sigmoid(layer(preds["heatmap"]))
 
     pcr = ccfg.pc_range
-    origin = gt_boxes.new_tensor([pcr[0], pcr[1]])
+    with span("di.sync.targets.origin"):
+        origin = gt_boxes.new_tensor([pcr[0], pcr[1]])
     # BBoxBEVL1Cost: centers normalised by the extent of the BEV grid
-    extent = gt_boxes.new_tensor([
-        bev_shape[1] * ccfg.voxel_size[0] * ccfg.out_size_factor,
-        bev_shape[0] * ccfg.voxel_size[1] * ccfg.out_size_factor,
-    ])
+    with span("di.sync.targets.extent"):
+        extent = gt_boxes.new_tensor([
+            bev_shape[1] * ccfg.voxel_size[0] * ccfg.out_size_factor,
+            bev_shape[0] * ccfg.voxel_size[1] * ccfg.out_size_factor,
+        ])
     cost = torch.empty(b, nl, p, g, device=dev)
     iou = torch.empty(b, nl, p, g, device=dev, dtype=boxes.dtype)
     for i in range(b):
@@ -104,7 +107,8 @@ def build_targets(
             cost[i, li] = torch.where(gt_mask[i][None, :], c, c.new_full((), BIG))
 
     num_gt = gt_mask.int().sum(-1)  # [B]
-    assign = hungarian_assign(cost, num_gt[:, None].expand(b, nl), impl=acfg.lap_impl)  # [B, L, P]
+    with span("di.train.matching"):
+        assign = hungarian_assign(cost, num_gt[:, None].expand(b, nl), impl=acfg.lap_impl)  # [B, L, P]
     matched = assign >= 0
     safe = assign.clamp(min=0).long()
 
@@ -228,7 +232,8 @@ def detection_loss(
 
     labels = t.labels.reshape(b, nl, p)
     bbox_t = t.bbox_targets.reshape(b, nl, p, -1)
-    code_w = bbox_t.new_tensor(dcfg.code_weights)
+    with span("di.sync.loss.code_weights"):
+        code_w = bbox_t.new_tensor(dcfg.code_weights)
     heat = preds["heatmap"].reshape(b, nl, p, -1)
     reg_parts = torch.cat(
         [preds["center"], preds["height"], preds["dim"], preds["rot"], preds["vel"]], -1

@@ -9,6 +9,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from ..configs import BBoxCoderConfig
+from ..utils.spans import span
 
 
 class DecodedBoxes(NamedTuple):
@@ -60,7 +61,8 @@ class TransFusionBBoxCoder:
         if preds.get("vel") is not None:
             parts += [preds["vel"][..., 0], preds["vel"][..., 1]]
         boxes = torch.stack(parts, -1)
-        pcr = boxes.new_tensor(c.post_center_range)
+        with span("di.sync.coder.center_range"):
+            pcr = boxes.new_tensor(c.post_center_range)
         ctr = boxes[..., :3]
         in_range = (ctr >= pcr[:3]).all(-1) & (ctr <= pcr[3:]).all(-1)
         if c.score_threshold is not None:

@@ -17,6 +17,15 @@ the number of ``ProfilerStep#`` ranges in the trace), grouped two ways:
   on the host; the launch's scope is the innermost range on its thread
   that contains it.
 
+Then, by program span (the ``di.*`` ranges the port opens,
+``utils/spans.py``), per run: how many times each ran on any thread, its
+host ms on the main thread (the one with the most ``record_function``
+ranges), the device ms of the kernels, copies and memsets launched, from
+any thread, while the main thread was inside it (so the autograd thread's
+launches fall in ``di.train.backward``), the copy and memset parts of it,
+and the device's idle ms while the main thread was inside it. Nested
+spans each count their whole time.
+
 With ``--ops``, the kernels with the most time and their launches per run.
 A trace with no GPU lanes (taken on the CPU) falls back to the host's
 top-level operator events, and says so. The last line is one JSON object
@@ -33,7 +42,7 @@ import gzip
 import json
 import os
 import re
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 # (category, pattern on the lower-cased kernel name), first match wins
 CATEGORIES = [
@@ -50,6 +59,7 @@ PORT_KERNELS = ("subm_conv_gemm", "subm_conv_bf16", "subm_conv_wgrad", "sum_part
                 "local_attn_bwd_query", "local_attn_bwd_key")
 STEP = re.compile(r"^ProfilerStep#\d+$")
 NO_SCOPE = "(no scope)"
+SPAN_PREFIX = "di."
 
 
 def load_trace(outdir: str) -> dict:
@@ -97,6 +107,71 @@ class Scopes:
         return NO_SCOPE
 
 
+def union(intervals) -> List[Tuple[float, float]]:
+    out: List[List[float]] = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return [(s, e) for s, e in out]
+
+
+def overlap(a, b) -> float:
+    """Total length shared by two sorted lists of disjoint intervals."""
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        total += max(0.0, min(a[i][1], b[j][1]) - max(a[i][0], b[j][0]))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def program_spans(events, device, launches, main, start: float, end: float, runs: int) -> Dict[str, Dict]:
+    """{span name: {count, host_ms, device_ms, copy_ms, memset_ms, idle_ms}}
+    per run, for the ``di.*`` ``cpu_op`` events that start in [start, end]:
+    ``main`` is the (pid, tid) lane whose time counts; ``device`` the
+    device events of the window and ``launches`` their launch calls by
+    correlation id."""
+    spans = [e for e in events if e.get("cat") == "cpu_op" and e.get("name", "").startswith(SPAN_PREFIX)
+             and start <= e["ts"] <= end]
+    count = collections.Counter(e["name"] for e in spans)
+    on_main = collections.defaultdict(list)
+    for e in spans:
+        if (e["pid"], e["tid"]) == main:
+            on_main[e["name"]].append((e["ts"], min(e["ts"] + e.get("dur", 0), end)))
+    on_main = {n: union(iv) for n, iv in on_main.items()}
+    # the main lane cut where any span opens or closes: the names open in
+    # each piece
+    marks = sorted((t, d, n) for n, iv in on_main.items() for s, e in iv for t, d in ((s, 1), (e, -1)))
+    bounds, open_sets, depth = [], [], collections.Counter()
+    for t, d, n in marks:
+        depth[n] += d
+        if bounds and bounds[-1] == t:
+            open_sets[-1] = frozenset(k for k, v in depth.items() if v > 0)
+        else:
+            bounds.append(t)
+            open_sets.append(frozenset(k for k, v in depth.items() if v > 0))
+    dev = {n: collections.Counter() for n in count}
+    for e in device:
+        launch = launches.get((e.get("args") or {}).get("correlation"))
+        i = bisect.bisect_right(bounds, launch["ts"]) - 1 if launch else -1
+        for n in open_sets[i] if i >= 0 else ():
+            dev[n][e.get("cat")] += e.get("dur", 0) / 1e3
+    busy = union((max(e["ts"], start), min(e["ts"] + e.get("dur", 0), end)) for e in device)
+    out = {}
+    for n in sorted(count):
+        host = sum(e - s for s, e in on_main.get(n, ())) / 1e3
+        idle = host - overlap(on_main.get(n, []), busy) / 1e3
+        out[n] = {"count": count[n] / runs, "host_ms": host / runs,
+                  "device_ms": sum(dev[n].values()) / runs, "copy_ms": dev[n]["gpu_memcpy"] / runs,
+                  "memset_ms": dev[n]["gpu_memset"] / runs, "idle_ms": idle / runs}
+    return out
+
+
 def analyze(trace: dict, iters: Optional[int] = None) -> Dict:
     """The numbers ``main`` prints: totals, per-run sums by category, by
     scope and by kernel, launches per run."""
@@ -107,8 +182,10 @@ def analyze(trace: dict, iters: Optional[int] = None) -> Dict:
     scopes = Scopes(events)
     on_gpu = bool(device)
     if on_gpu:
+        # a launch is a runtime call or a cuLaunchKernel (cuDNN and cuBLAS
+        # start some kernels that way)
         launches = {e["args"]["correlation"]: e for e in events
-                    if e.get("cat") == "cuda_runtime" and "correlation" in (e.get("args") or {})}
+                    if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in (e.get("args") or {})}
 
         def scope_of(e):
             launch = launches.get((e.get("args") or {}).get("correlation"))
@@ -116,8 +193,9 @@ def analyze(trace: dict, iters: Optional[int] = None) -> Dict:
         work = device
     else:
         # host operators: the top-level ones of each thread, so nested calls
-        # are not counted twice
-        ops = sorted((e for e in events if e.get("cat") == "cpu_op"), key=lambda e: (e["pid"], e["tid"], e["ts"]))
+        # are not counted twice (program spans are not operators)
+        ops = sorted((e for e in events if e.get("cat") == "cpu_op" and not e["name"].startswith(SPAN_PREFIX)),
+                     key=lambda e: (e["pid"], e["tid"], e["ts"]))
         work, end = [], {}
         for e in ops:
             lane = (e["pid"], e["tid"])
@@ -142,6 +220,18 @@ def analyze(trace: dict, iters: Optional[int] = None) -> Dict:
     window = sum(e.get("dur", 0) for e in steps) / 1e3
     port = {k: sum(n for name, n in n_by_op.items() if k in name) / runs
             for k in PORT_KERNELS}
+    # the main thread: the one with the most record_function ranges, else with the most spans
+    weight = {lane: len(r) for lane, r in scopes.lanes.items()} or collections.Counter(
+        (e["pid"], e["tid"]) for e in events if e.get("name", "").startswith(SPAN_PREFIX))
+    main = max(weight, key=weight.get) if weight else None
+    start = min((e["ts"] for e in steps), default=float("-inf"))
+    end = max((e["ts"] + e.get("dur", 0) for e in steps), default=float("inf"))
+    in_window = [e for e in device if start <= e["ts"] <= end]
+    spans = program_spans(events, in_window, launches if on_gpu else {}, main, start, end, runs)
+    if not on_gpu:
+        for v in spans.values():
+            for k in ("device_ms", "copy_ms", "memset_ms", "idle_ms"):
+                del v[k]
     return {
         "lanes": "device kernels" if on_gpu else "host operators (the trace has no GPU lanes)",
         "runs": runs,
@@ -153,6 +243,7 @@ def analyze(trace: dict, iters: Optional[int] = None) -> Dict:
         "by_scope_ms_per_run": {k: v / runs for k, v in by_src.most_common()},
         "top_ops": [[name, ms / runs, n_by_op[name] / runs] for name, ms in by_op.most_common()],
         "port_launches_per_run": port,
+        "by_span_per_run": spans,
     }
 
 
@@ -179,6 +270,15 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     print("\nby source scope (ms/run):")
     for src, ms in list(res["by_scope_ms_per_run"].items())[: args.top]:
         print(f"  {ms:8.1f}  {src}")
+    if res["by_span_per_run"]:
+        gpu = res["lanes"].startswith("device")
+        print("\nby program span (per run; host ms on the main thread"
+              + (", device ms of its launches, copy + memset ms, device idle ms):" if gpu else "):"))
+        for name, v in sorted(res["by_span_per_run"].items(), key=lambda kv: -kv[1]["host_ms"])[: args.top]:
+            cols = f"  x{v['count']:<6g} {v['host_ms']:8.2f}"
+            if gpu:
+                cols += f" {v['device_ms']:8.2f} {v['copy_ms'] + v['memset_ms']:7.2f} {v['idle_ms']:8.2f}"
+            print(f"{cols}  {name}")
     if args.ops:
         print("\ntop kernels (ms/run, count/run):")
         for name, ms, n in res["top_ops"][: args.top]:

@@ -42,6 +42,7 @@ from torch import nn
 from ..configs import Config
 from ..parallel.mesh import all_reduce, is_distributed
 from ..targets.assign import Targets, build_targets, detection_loss
+from ..utils.spans import span
 from .schedules import cyclic_cosine
 
 FROZEN_IMG = ("img_backbone", "img_neck")
@@ -115,25 +116,30 @@ class TrainStep:
         an earlier assignment instead of matching anew (to compare two
         backward passes on one matching)."""
         cfg = self.cfg
-        batch = {k: v.to(self.device) for k, v in batch.items()}
-        self.opt.zero_grad(set_to_none=True)
-        saved = [b.clone() for b in self.frozen_buffers]
-        preds = self.model(batch, train=True, generator=generator)
-        with torch.no_grad():
-            for b, s in zip(self.frozen_buffers, saved):
-                b.copy_(s)
+        with span("di.train.forward"):
+            batch = {k: v.to(self.device) for k, v in batch.items()}
+            self.opt.zero_grad(set_to_none=True)
+            saved = [b.clone() for b in self.frozen_buffers]
+            preds = self.model(batch, train=True, generator=generator)
+            with torch.no_grad():
+                for b, s in zip(self.frozen_buffers, saved):
+                    b.copy_(s)
         m = cfg.model
         if targets is None:
-            targets = build_targets(preds, batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"],
-                                    m.pts_bbox_head, m.bbox_coder, m.assigner, bev_shape(cfg))
-        losses = detection_loss(preds, batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"],
-                                m.pts_bbox_head, m.bbox_coder, m.assigner, bev_shape(cfg), targets)
-        losses["loss_total"].backward()
-        metrics = {k: v.detach() for k, v in losses.items()}
-        if is_distributed():
-            metrics = self._all_reduce(metrics)
-        sq = [p.grad.pow(2).sum() for p in self.params if p.grad is not None]
-        metrics["grad_norm"] = torch.sqrt(torch.stack(sq).sum()) if sq else torch.zeros((), device=self.device)
+            with span("di.train.targets"):
+                targets = build_targets(preds, batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"],
+                                        m.pts_bbox_head, m.bbox_coder, m.assigner, bev_shape(cfg))
+        with span("di.train.loss"):
+            losses = detection_loss(preds, batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"],
+                                    m.pts_bbox_head, m.bbox_coder, m.assigner, bev_shape(cfg), targets)
+        with span("di.train.backward"):
+            losses["loss_total"].backward()
+            metrics = {k: v.detach() for k, v in losses.items()}
+            if is_distributed():
+                metrics = self._all_reduce(metrics)
+        with span("di.train.grad_norm"):
+            sq = [p.grad.pow(2).sum() for p in self.params if p.grad is not None]
+            metrics["grad_norm"] = torch.sqrt(torch.stack(sq).sum()) if sq else torch.zeros((), device=self.device)
         return metrics, targets
 
     @torch.no_grad()
@@ -152,17 +158,18 @@ class TrainStep:
     def update(self, grad_norm: torch.Tensor) -> None:
         """Clip the gradients by their global norm, then one AdamW update at
         this step's learning rate and beta1."""
-        max_norm = self.cfg.optim.grad_clip_norm
-        scale = torch.where(grad_norm < max_norm, torch.ones_like(grad_norm), max_norm / grad_norm)
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            p.grad.mul_(scale)
-        group = self.opt.param_groups[0]
-        group["lr"] = self.lr(self.step_count)
-        group["betas"] = (self.b1(self.step_count), 0.999)
-        self.opt.step()
-        self.step_count += 1
+        with span("di.train.update"):
+            max_norm = self.cfg.optim.grad_clip_norm
+            scale = torch.where(grad_norm < max_norm, torch.ones_like(grad_norm), max_norm / grad_norm)
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                p.grad.mul_(scale)
+            group = self.opt.param_groups[0]
+            group["lr"] = self.lr(self.step_count)
+            group["betas"] = (self.b1(self.step_count), 0.999)
+            self.opt.step()
+            self.step_count += 1
 
     def __call__(self, batch: Dict[str, torch.Tensor], generator: torch.Generator | None = None
                  ) -> Dict[str, torch.Tensor]:

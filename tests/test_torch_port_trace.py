@@ -120,3 +120,53 @@ def test_analyze_fixture_trace(tmp_path, capsys):
     assert launches["subm_conv_gemm"] == 2 and launches["local_attn_fwd"] == 1 and launches["local_attn_bwd_key"] == 0
     assert res["top_ops"][0] == [kernels[2][1], 0.5, 1]
     assert analyze_trace.main([str(tmp_path), "--iters", "1"])["ms_per_run"] == pytest.approx(2 * 1.23)
+
+
+def _with_program_spans(trace):
+    """The fixture trace plus program spans on the main thread, two
+    launches from a second thread (tid 11, as the autograd engine's) inside
+    ``di.train.backward``, one of them a ``cuLaunchKernel``, and a span on
+    that thread."""
+    ev = list(trace["traceEvents"])
+    for run in range(2):
+        t0 = run * 10000
+        corr = 1000 + run
+        ev += [
+            _x("cpu_op", "di.sparse_encoder", 1, 10, t0 + 90, 1020),
+            _x("cpu_op", "di.sparse.tables", 1, 10, t0 + 100, 40),
+            _x("cpu_op", "di.sync.copy", 1, 10, t0 + 4990, 20),
+            _x("cpu_op", "di.train.backward", 1, 10, t0 + 5500, 1000),
+            _x("cpu_op", "di.sync.mask.grad", 1, 11, t0 + 5590, 20),
+            _x("cuda_runtime", "cudaLaunchKernel", 1, 11, t0 + 5600, 2, correlation=corr),
+            _x("kernel", "void at::native::index_put_kernel", 0, 7, t0 + 7000, 50, correlation=corr, stream=7),
+            # a cuLaunchKernel, as cuDNN and cuBLAS make some
+            _x("cuda_driver", "cuLaunchKernel", 1, 11, t0 + 5700, 2, correlation=corr + 10),
+            _x("kernel", "cudnn_dgrad_kernel", 0, 7, t0 + 7100, 30, correlation=corr + 10, stream=7),
+        ]
+    return {"traceEvents": ev}
+
+
+def test_analyze_fixture_program_spans(tmp_path, capsys):
+    trace = _with_program_spans(_fixture_trace()[0])
+    (tmp_path / "trace.json").write_text(json.dumps(trace))
+    res = analyze_trace.main([str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "by program span" in out and "di.train.backward" in out
+    spans = res.pop("by_span_per_run")
+    # busy [6000, 6710], [7000, 7050] and [7100, 7130] after each run's start (us)
+    assert spans["di.sparse_encoder"] == pytest.approx(
+        {"count": 1, "host_ms": 1.02, "device_ms": 0.4, "copy_ms": 0, "memset_ms": 0, "idle_ms": 1.02})
+    assert spans["di.sparse.tables"] == pytest.approx(
+        {"count": 1, "host_ms": 0.04, "device_ms": 0, "copy_ms": 0, "memset_ms": 0, "idle_ms": 0.04})
+    assert spans["di.sync.copy"] == pytest.approx(
+        {"count": 1, "host_ms": 0.02, "device_ms": 0.02, "copy_ms": 0.02, "memset_ms": 0, "idle_ms": 0.02})
+    assert spans["di.train.backward"] == pytest.approx(
+        {"count": 1, "host_ms": 1.0, "device_ms": 0.08, "copy_ms": 0, "memset_ms": 0, "idle_ms": 0.5})
+    assert spans["di.sync.mask.grad"] == pytest.approx(
+        {"count": 1, "host_ms": 0, "device_ms": 0, "copy_ms": 0, "memset_ms": 0, "idle_ms": 0})
+    # the spans move nothing else the tool prints
+    bare = {"traceEvents": [e for e in trace["traceEvents"] if not e.get("name", "").startswith("di.")]}
+    (tmp_path / "trace.json").write_text(json.dumps(bare))
+    plain = analyze_trace.main([str(tmp_path)])
+    capsys.readouterr()
+    assert plain.pop("by_span_per_run") == {} and plain == res
