@@ -289,6 +289,25 @@ defaults in eval (``DI_SPARSE_IMPL=banded``, ``DI_LOCATT_MXU=bf16``):
     scale, the heads logged, the heads' distance to the same weights with
     the fp32 kernels and ms/frame of both; the same for
     ``fusion_plusplus`` (K1 only).
+30. the sparse encoder's neighbour tables (``csrc/sparse_tables.cu``) on
+    phase 19's first realistic frame: the table calls of the encoder's own
+    forward, recorded in eval at the defaults (with the overflow flags)
+    and with gradients on as in train (with the inverses), the wrappers'
+    ``.launches`` over each forward (44 and 48); each recorded table
+    against its plain version on the same inputs on the same card, bit
+    for bit; the recorded tables' device time, by CUDA events around
+    back-to-back replays and with the host's gaps taken out (the card
+    asleep while the host queues the replays), each with its share of the
+    bound, and wall time (host clock to a synchronize), with the kernels
+    and with the plain versions; the bound
+    (bytes: a stage's map filled and scattered once, its coords read
+    once, each table and site written once, at 3.35 TB/s).
+
+Every phase that sets the launch counters to 0 and reads them counts the
+six table wrappers' launches too (``TABLES``, ``table_launches``): 40 a
+sample in eval, 44 where K1's bf16 variant takes the overflow flags, 48 a
+sample in a train step (the strided tables' inverses), and so do the
+CLIs' counters (``tools/test.py::launch_counts``).
 
 Record and replay of ReLU masks, sort orders, dropout masks, sampling
 positions, boxes and L1 signs span the whole forward and backward (:func:`step_grads` wraps
@@ -348,7 +367,7 @@ from deepinteraction_tpu_torch.ops.nms import nms_keep
 from deepinteraction_tpu_torch.ops import local_attention as la
 from deepinteraction_tpu_torch.ops import sparse_conv as sc
 from deepinteraction_tpu_torch.ops import subm_conv as smc
-from deepinteraction_tpu_torch.ops.voxelize import voxelize
+from deepinteraction_tpu_torch.ops.voxelize import hard_simple_vfe, voxelize, voxelize_batched
 from deepinteraction_tpu_torch.profile_train import MODULES, fenced_module_times, timed_step
 from deepinteraction_tpu_torch.targets import assign
 from deepinteraction_tpu_torch.tools import ensemble
@@ -417,6 +436,9 @@ DIST_EVAL_TOL = 1e-5
 # of scale
 FOLD_TOL = 1e-4
 REPS, WARMUP, BATCH = 10, 3, 5
+# Phase 30: ~0.1 s of the card's clock, asleep while the host queues BATCH
+# calls of a few ms each
+QUEUE_SLEEP_CYCLES = 200_000_000
 # Phase 18: the card's decode against libjpeg's pixels (cv2.imread of the
 # committed fixtures), max and mean abs levels. nvJPEG's own RGB output
 # upsamples 4:2:0 chroma otherwise than libjpeg and read max abs 57 and 58
@@ -444,11 +466,14 @@ TRANSFORM_TOL = 1e-3
 # Phase 26: the launches a traced fusion_base eval run must show (phase 7's
 # counts a frame)
 TRACE_LAUNCHES = {"subm_conv_gemm": 21, "local_attn_fwd": 6}
+# the sparse encoder's six table wrappers (csrc/sparse_tables.cu)
+TABLES = (sc.dense_index_map, sc.subm_neighbor_table, sc.strided_neighbor_table, sc.banded_overflow,
+          sc.downsample_sites, sc.inverse_table)
 # every kernel wrapper's launch counter; at the default lap_impl=callback
 # no path but phase 28's launches the auction, and only phase 29 runs the
-# bf16 variants (FP32_KERNELS)
+# bf16 variants (FP32_KERNELS) and so the banded plan's overflow flags
 COUNTED = (smc.subm_conv_gemm, smc.subm_conv_gemm_bf16, smc.subm_conv_dgrad, smc.subm_conv_wgrad, la.local_attn_fwd,
-           la.local_attn_fwd_bf16, la.local_attn_bwd, hungarian.auction_lap)
+           la.local_attn_fwd_bf16, la.local_attn_bwd, hungarian.auction_lap) + TABLES
 # Phase 27: top-2 views against all views over pillars that at most two
 # views see, and the key dedupe against nearest over pillars whose views
 # hold at most LEVER_DEDUPE distinct pixels: the same keys in another order
@@ -527,6 +552,23 @@ def expect_launches(**nonzero) -> dict:
     """The launch counts of every counted kernel: ``nonzero``, 0 elsewhere."""
     assert set(nonzero) <= {c.__name__ for c in COUNTED}, nonzero
     return {c.__name__: nonzero.get(c.__name__, 0) for c in COUNTED}
+
+
+def table_launches(samples: int, train: bool = False, flags: bool = False) -> dict:
+    """The table wrappers' launches of ``samples`` samples through the
+    sparse encoder's 4 stages. A stage: its submanifold table (the map's
+    fill and scatter, a lookup), the banded plan's overflow flag where
+    ``flags`` (K1's bf16 variant), the downsampling's sites (4) and strided
+    table (a map, a lookup), and that table's inverse where ``train`` (2;
+    the submanifold inverse is a flip, no kernel)."""
+    per_stage = {"dense_index_map": 4, "subm_neighbor_table": 1, "strided_neighbor_table": 1,
+                 "banded_overflow": int(flags), "downsample_sites": 4, "inverse_table": 2 * int(train)}
+    return {k: 4 * v * samples for k, v in per_stage.items()}
+
+
+def tables_total(counts: dict) -> int:
+    """The six table wrappers' launches in ``counts``."""
+    return sum(counts[c.__name__] for c in TABLES)
 
 
 def device_time_ms(fn) -> float:
@@ -636,22 +678,28 @@ def relu_masks(masks: list, replay: bool):
 
 @contextlib.contextmanager
 def sort_orders(orders: list, replay: bool, flips: list):
-    """Record the permutation of every ``torch.sort`` call in call order
-    (``replay=False``), or impose recorded permutations in that order
-    (``replay=True``), appending to ``flips`` each call whose own order
-    differed. The decoder picks its proposals by sorting the heatmap: two
-    fp32 runs that order two near-equal scores differently train different
-    queries, so a comparison of gradients replays one run's orders in the
-    other, as it replays its ReLU masks."""
+    """Record the permutation of every ``torch.sort`` call of floating-point
+    values in call order (``replay=False``), or impose recorded
+    permutations in that order (``replay=True``), appending to ``flips``
+    each call whose own order differed. The decoder picks its proposals by
+    sorting the heatmap: two fp32 runs that order two near-equal scores
+    differently train different queries, so a comparison of gradients
+    replays one run's orders in the other, as it replays its ReLU masks.
+    Sorts of integers (voxel ids, stable; the strided convs' output sites,
+    values only, which the card builds with no sort) give the same result
+    on every device and are left alone."""
     sort = torch.sort
     replayed = iter(orders)
 
     def record(x, *a, **k):
         out = sort(x, *a, **k)
-        orders.append(out.indices)
+        if x.is_floating_point():
+            orders.append(out.indices)
         return out
 
     def apply(x, *a, **k):
+        if not x.is_floating_point():
+            return sort(x, *a, **k)
         own = sort(x, *a, **k).indices
         idx = next(replayed).to(x.device)
         flips.append(not torch.equal(own, idx))
@@ -1125,14 +1173,14 @@ def run_lidar(dev, gen):
 
     start = copy.deepcopy(model.state_dict())
     step = TrainStep(cfg, model, 1000, device=dev)
-    for c in (smc.subm_conv_gemm, smc.subm_conv_dgrad, smc.subm_conv_wgrad):
+    for c in COUNTED:
         c.launches = 0
     metrics, targets, grads = step_grads(step, batch, seed=1)
     torch.cuda.synchronize()
-    launches = {"subm_conv_gemm": smc.subm_conv_gemm.launches, "subm_conv_dgrad": smc.subm_conv_dgrad.launches,
-                "subm_conv_wgrad": smc.subm_conv_wgrad.launches}
+    launches = {c.__name__: c.launches for c in COUNTED}
     log(f"lidar_only train step launches, B={b}: {launches}")
-    assert launches == {"subm_conv_gemm": 21 * b, "subm_conv_dgrad": 20 * b, "subm_conv_wgrad": 21 * b}, launches
+    assert launches == expect_launches(subm_conv_gemm=21 * b, subm_conv_dgrad=20 * b, subm_conv_wgrad=21 * b,
+                                       **table_launches(b, train=True)), launches
     for k, v in metrics.items():
         assert torch.isfinite(v).all(), f"non-finite {k}"
     assert set(grads) == {n for n, q in model.named_parameters() if q.requires_grad}, "a parameter has no gradient"
@@ -1230,9 +1278,11 @@ def run_fusion_train(dev, gen):
     launches = {c.__name__: c.launches for c in COUNTED}
     log(f"fusion_base train step launches, B={b}: {launches}")
     # the LiDAR branch is frozen: K1 runs forward only (21 convs a sample);
-    # K2 runs 3 blocks in each MMRI layer (6), forward and backward
+    # K2 runs 3 blocks in each MMRI layer (6), forward and backward; the
+    # tables are built with gradients on, so with their inverses
     k2n = 3 * cfg.model.imgpts_neck.num_layers
-    assert launches == expect_launches(subm_conv_gemm=21 * b, local_attn_fwd=k2n, local_attn_bwd=k2n), launches
+    assert launches == expect_launches(subm_conv_gemm=21 * b, local_attn_fwd=k2n, local_attn_bwd=k2n,
+                                       **table_launches(b, train=True)), launches
     for k, v in metrics.items():
         assert torch.isfinite(v).all(), f"non-finite {k}"
     trainable = {n for n, q in model.named_parameters() if q.requires_grad}
@@ -1321,14 +1371,13 @@ def run_slice(dev, gen):
     k2 = check_k2(dev, gen)
     check_tiny(dev, tiny_config(), "tiny_config")
 
-    smc.subm_conv_gemm.launches = 0
-    la.local_attn_fwd.launches = 0
+    for c in COUNTED:
+        c.launches = 0
     preds = model(batch)
     torch.cuda.synchronize()
-    launches = {"subm_conv_gemm": smc.subm_conv_gemm.launches, "local_attn_fwd": la.local_attn_fwd.launches}
+    launches = {c.__name__: c.launches for c in COUNTED}
     log(f"main path launches per frame: {launches}")
-    assert launches["subm_conv_gemm"] == 21, launches
-    assert launches["local_attn_fwd"] == 6, launches
+    assert launches == expect_launches(subm_conv_gemm=21, local_attn_fwd=6, **table_launches(1)), launches
     kern = {k: captured[k] for k in captured}
 
     det = get_bboxes(preds, cfg.model.pts_bbox_head, cfg.model.bbox_coder, p)
@@ -1416,7 +1465,7 @@ def run_pp(dev):
     launches = {c.__name__: c.launches for c in COUNTED}
     kern = dict(captured)
     log(f"fusion_plusplus eval launches per frame: {launches}")
-    assert launches == expect_launches(subm_conv_gemm=21), launches
+    assert launches == expect_launches(subm_conv_gemm=21, **table_launches(1)), launches
     det = get_bboxes(preds, cfg.model.pts_bbox_head, cfg.model.bbox_coder, p)
     for name, t in list(preds.items()) + list(det._asdict().items()):
         assert torch.isfinite(t.float()).all(), f"non-finite {name}"
@@ -1545,7 +1594,7 @@ def run_pp_train(dev):
     launches = {c.__name__: c.launches for c in COUNTED}
     log(f"fusion_plusplus train step launches, B={b}: {launches}")
     # both branches frozen: K1 runs forward only, 21 convs a sample; no K2
-    assert launches == expect_launches(subm_conv_gemm=21 * b), launches
+    assert launches == expect_launches(subm_conv_gemm=21 * b, **table_launches(b, train=True)), launches
     for k, v in metrics.items():
         assert torch.isfinite(v).all(), f"non-finite {k}"
     trainable = {n for n, q in model.named_parameters() if q.requires_grad}
@@ -1786,8 +1835,8 @@ def run_eval_cli(dev, gen):
     assert len(infos) % bsz, "the last batch should be padded"
     # K1: 21 convs a sample; K2: 3 local attentions an MMRI layer, batched
     k2_per_batch = 3 * cfg.model.imgpts_neck.num_layers
-    assert launches == expect_launches(subm_conv_gemm=21 * bsz * n_batches,
-                                       local_attn_fwd=k2_per_batch * n_batches), launches
+    assert launches == expect_launches(subm_conv_gemm=21 * bsz * n_batches, local_attn_fwd=k2_per_batch * n_batches,
+                                       **table_launches(bsz * n_batches)), launches
     for det in res["detections"]:
         for name, t in det._asdict().items():
             assert torch.isfinite(t.float()).all(), f"non-finite {name}"
@@ -1995,7 +2044,8 @@ def run_train_cli(dev, ckpt: str, measured: dict) -> tuple:
     lidar_t = read_train_run(work, lidar, measured["lidar_keys"], "lidar_only, 1 epoch")
     log(f"train CLI lidar_only: --profile-steps 2 wrote {trace} ({os.path.getsize(trace)} bytes); "
         f"kernel launches {lidar['launches']}")
-    per_step = expect_launches(subm_conv_gemm=42, subm_conv_dgrad=40, subm_conv_wgrad=42)
+    per_step = expect_launches(subm_conv_gemm=42, subm_conv_dgrad=40, subm_conv_wgrad=42,
+                               **table_launches(2, train=True))
     assert lidar["launches"] == {k: v * lidar["steps"] for k, v in per_step.items()}, lidar
     assert lidar["steps"] == steps, lidar
 
@@ -2014,9 +2064,10 @@ def run_train_cli(dev, ckpt: str, measured: dict) -> tuple:
         evals = [json.loads(line) for line in f]
     assert epochs == [0] * steps + [1] * steps, epochs
     assert [e["epoch"] for e in evals] == [0, 1] and all(np.isfinite(e["NDS"]) for e in evals), evals
-    fusion_step = expect_launches(subm_conv_gemm=42, local_attn_fwd=6, local_attn_bwd=6)
+    fusion_step = expect_launches(subm_conv_gemm=42, local_attn_fwd=6, local_attn_bwd=6,
+                                  **table_launches(2, train=True))
     batches = -(-len(infos["val"]) // cfg.data.samples_per_device)
-    eval_batch = expect_launches(subm_conv_gemm=42, local_attn_fwd=6)
+    eval_batch = expect_launches(subm_conv_gemm=42, local_attn_fwd=6, **table_launches(2))
     for run in (fusion, resumed):
         assert run["launches"] == {k: v * steps for k, v in fusion_step.items()}, run
         assert run["eval_launches"] == {k: v * batches for k, v in eval_batch.items()}, run
@@ -2036,7 +2087,9 @@ def run_train_cli(dev, ckpt: str, measured: dict) -> tuple:
         bench[label] = rec
         log(f"benchmark CLI fusion_base {label} ({wall:.1f} s in its own process): " + json.dumps(rec))
         b = int(args[args.index("--batch") + 1])
-        want = expect_launches(subm_conv_gemm=21 * b, local_attn_fwd=6, local_attn_bwd=6 if "--train" in args else 0)
+        train = "--train" in args
+        want = expect_launches(subm_conv_gemm=21 * b, local_attn_fwd=6, local_attn_bwd=6 if train else 0,
+                               **table_launches(b, train))
         assert rec["launches"] == {k: v * REPS for k, v in want.items()}, (label, rec["launches"])
     log(f"benchmark CLI beside this process (logged, not asserted; the host moves these 20-40 %): eval B=1 "
         f"{bench['eval, synthetic, B=1']['ms_per_iter_median']:.3f} ms/frame synthetic, "
@@ -2382,7 +2435,7 @@ def run_levers(dev, paths: dict, smi: str) -> dict:
     launches = {c.__name__: c.launches for c in COUNTED}
     log(f"fusion_base eval at the JAX defaults {levers} on phase 19's first realistic frame, B=1: launches "
         f"{launches}")
-    assert launches == expect_launches(subm_conv_gemm=21, local_attn_fwd=6), launches
+    assert launches == expect_launches(subm_conv_gemm=21, local_attn_fwd=6, **table_launches(1)), launches
     for h in hooks:
         h.remove()
     with plain_kernels(), sort_orders(orders, True, flips):
@@ -2469,7 +2522,7 @@ def run_levers(dev, paths: dict, smi: str) -> dict:
         torch.cuda.synchronize()
         if name == "defaults":
             pp_launches = {c.__name__: c.launches for c in COUNTED}
-            assert pp_launches == expect_launches(subm_conv_gemm=21), pp_launches
+            assert pp_launches == expect_launches(subm_conv_gemm=21, **table_launches(1)), pp_launches
         pp[name + " ms"] = frame_ms(model, pbatch, pcfg, pcfg.test_num_proposals)
         del model
     log(f"fusion_plusplus eval + get_bboxes at the JAX defaults (joint top-4 MSDA), realistic frame, B=1 ({smi}): "
@@ -2632,7 +2685,7 @@ def run_auction(dev, paths: dict, train_pkl: str, metric_keys: set, smi: str) ->
     k2n = 3 * cfg.model.imgpts_neck.num_layers
     log(f"fusion_base train step, lap_impl=auction, B={b}, 3 steps: launches {launches}")
     assert launches == expect_launches(subm_conv_gemm=3 * 21 * b, local_attn_fwd=3 * k2n, local_attn_bwd=3 * k2n,
-                                       auction_lap=3), launches
+                                       auction_lap=3, **table_launches(3 * b, train=True)), launches
     for m in [metrics] + later:
         assert all(torch.isfinite(v).all() for v in m.values()), m
     assert torch.equal(calls[0][0], step_cost), "the auction step's first cost differs from the callback step's"
@@ -2673,7 +2726,8 @@ def run_auction(dev, paths: dict, train_pkl: str, metric_keys: set, smi: str) ->
     steps = summary["steps"]
     assert summary["lap_impl"] == "auction", summary
     assert summary["launches"] == expect_launches(subm_conv_gemm=42 * steps, local_attn_fwd=6 * steps,
-                                                  local_attn_bwd=6 * steps, auction_lap=steps), summary
+                                                  local_attn_bwd=6 * steps, auction_lap=steps,
+                                                  **table_launches(2 * steps, train=True)), summary
     cli = read_train_run(work, summary, metric_keys, "fusion_base, 1 epoch, lap_impl=auction")
     log(f"train CLI fusion_base --cfg-options model.assigner.lap_impl=auction ({wall:.1f} s in its own process): "
         f"lap_impl {summary['lap_impl']}, {steps} steps, launches {summary['launches']}, ms/step "
@@ -2694,7 +2748,7 @@ def run_auction(dev, paths: dict, train_pkl: str, metric_keys: set, smi: str) ->
     bf_preds = models["bfloat16"](frame)
     torch.cuda.synchronize()
     bf_launches = {c.__name__: c.launches for c in COUNTED}
-    assert bf_launches == expect_launches(subm_conv_gemm=21, local_attn_fwd=6), bf_launches
+    assert bf_launches == expect_launches(subm_conv_gemm=21, local_attn_fwd=6, **table_launches(1)), bf_launches
     preds = models["float32"](frame)
     assert all(torch.isfinite(v.float()).all() for v in bf_preds.values())
     timed = {name: frame_ms(m, frame, cfg, p) for name, m in models.items()}
@@ -2739,6 +2793,154 @@ def stage_flags(cfg, batch, dev, levers: EvalLevers) -> list:
     return [(bool(sc.banded_overflow(nbr, valid, levers.banded_t, windows[min(i, len(windows) - 1)])),
              ((nbr < kin) & valid[:, None]).sum().item() / max(valid.sum().item(), 1))
             for i, (_, nbr, _, valid, kin, _, _, _) in enumerate(stages)]
+
+
+class _TableCalls:
+    """``ops/sparse_conv.py`` as the sparse encoder sees it, each call of a
+    table function appended to ``calls`` as (name, args, output)."""
+    NAMES = ("subm_neighbor_table", "banded_overflow", "downsample_sites", "strided_neighbor_table", "inverse_table")
+
+    def __init__(self, calls: list):
+        self.calls = calls
+
+    def __getattr__(self, name):
+        fn = getattr(sc, name)
+        if name not in self.NAMES:
+            return fn
+
+        def call(*args):
+            out = fn(*args)
+            self.calls.append((name, args, out))
+            return out
+
+        return call
+
+
+@contextlib.contextmanager
+def recorded_tables(calls: list):
+    """The sparse encoder's table calls appended to ``calls``, in its order,
+    while the block runs."""
+    saved = sparse_encoder.sc
+    sparse_encoder.sc = _TableCalls(calls)
+    try:
+        yield
+    finally:
+        sparse_encoder.sc = saved
+
+
+def queued_device_ms(fn, n: int = BATCH) -> float:
+    """Device time of one call with the host's launch gaps taken out: the
+    card sleeps while the host queues ``n`` calls between two events, which
+    then time the calls' kernels back to back; the median over REPS
+    samples. For calls that never wait for the card."""
+    fn()
+    times = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        assert not start.query(), "the card woke before the host had queued the calls"
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def replay_tables(calls: list, plain: bool) -> list:
+    """Each recorded table call again on its recorded inputs, with the
+    kernels or with the plain versions: the outputs, in order."""
+    return [getattr(sc, name + "_plain" if plain else name)(*args) for name, args, _ in calls]
+
+
+def tables_bound_bytes(calls: list) -> int:
+    """The least bytes any design moves for the recorded tables: each
+    stage's dense map filled once and its valid sites scattered into it
+    once (the stage's submanifold and strided tables read the same map),
+    its coords and valid read once, each table, inverse and output site
+    written once; the overflow flag can be taken in the lookup's pass and
+    adds nothing."""
+    n = 0
+    for name, args, out in calls:
+        if name == "subm_neighbor_table":
+            st = args[0]
+            cells, k = st.shape[0] * st.shape[1] * st.shape[2], st.coords.shape[0]
+            n += 4 * cells + 4 * int(st.valid.sum()) + 13 * k + 4 * out.numel()
+        elif name == "downsample_sites":
+            n += 13 * out[0].shape[0]
+        elif name in ("strided_neighbor_table", "inverse_table"):
+            n += 4 * out.numel()
+    return n
+
+
+def run_tables(dev, batch, smi: str) -> dict:
+    """Phase 30: the neighbour tables of sample 0 of ``batch`` (a realistic
+    frame), recorded from the sparse encoder's own forward at the defaults,
+    built as the detector builds it: in eval (the overflow flags of K1's
+    bf16 variant) and with gradients on as in train (the inverses). The
+    launches of each forward; every table against its plain version on the
+    same inputs on the card, bit for bit; the device ms of the recorded
+    tables (CUDA events around back-to-back replays, and the kernels' own
+    time with the host's gaps taken out, ``queued_device_ms``) and their
+    wall ms, with the kernels and with the plain versions, beside the
+    bound."""
+    t_start = time.perf_counter()
+    cfg = fusion_base_config()
+    vl = cfg.model.pts_voxel_layer
+    levers = EvalLevers()
+    enc = sparse_encoder.SparseEncoder(cfg.model.pts_middle_encoder, levers.banded_t, levers.banded_windows()).to(dev)
+    rec = {"shapes": []}
+    for label, train in (("eval", False), ("train", True)):
+        vo = voxelize_batched(batch["points"][:1], batch["points_mask"][:1], voxel_size=vl.voxel_size,
+                              point_cloud_range=vl.point_cloud_range, max_num_points=vl.max_num_points,
+                              max_voxels=vl.max_voxels[0] if train else vl.max_voxels[1])
+        valid = torch.arange(vo.coords.shape[1], device=dev)[None] < vo.num_voxels[:, None]
+        bf16 = levers.bf16_kernels(train, True)[0]
+        calls = []
+        for c in TABLES:
+            c.launches = 0
+        with torch.set_grad_enabled(train), recorded_tables(calls):
+            enc(hard_simple_vfe(vo.voxels, vo.num_points), vo.coords, valid, bf16=bf16)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in TABLES}
+        assert launches == table_launches(1, train, flags=bf16), (label, launches)
+        for (name, _, got), want in zip(calls, replay_tables(calls, plain=True)):
+            if name == "downsample_sites":  # (coords, valid, out shape)
+                assert got[2] == want[2], (label, name)
+                got, want = got[:2], want[:2]
+            for a, b in zip(tensors(got), tensors(want)):
+                assert a.dtype == b.dtype and torch.equal(a, b), f"{label} {name}: the kernels differ from plain"
+        ms = device_time_ms(lambda: replay_tables(calls, plain=False))
+        # the events above also hold the gaps where the card waits for the
+        # host's launches; the kernels' own time is read with the host ahead
+        kernel_ms = queued_device_ms(lambda: replay_tables(calls, plain=False))
+        plain_ms = device_time_ms(lambda: replay_tables(calls, plain=True))
+        walls = {}
+        for plain in (False, True, False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            replay_tables(calls, plain=plain)
+            torch.cuda.synchronize()
+            walls.setdefault(plain, []).append(1e3 * (time.perf_counter() - t0))
+        b = {"bound_ms": tables_bound_bytes(calls) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+             "peak": f"HBM {HBM_BYTES_PER_S / 1e12:g} TB/s"}
+        shape = {"shape": f"realistic {label} frame, {int(valid.sum())} sites, the tables of 4 stages",
+                 "ms": ms, "plain_ms": plain_ms, **b, "share": b["bound_ms"] / ms,
+                 "kernel_ms": kernel_ms, "kernel_share": b["bound_ms"] / kernel_ms,
+                 "wall_ms": min(walls[False]), "plain_wall_ms": min(walls[True]),
+                 "launches": sum(launches.values()), "launches_by_wrapper": launches}
+        rec["shapes"].append(shape)
+        log(f"{label} tables of realistic frame sample 0 from the encoder's forward ({smi}): equal to the plain "
+            f"versions bit for bit; {shape['launches']} launches {launches}; device {ms:.4f} ms by events, share "
+            f"{100 * shape['share']:.1f} % (plain on the card {plain_ms:.4f}); the kernels' own {kernel_ms:.4f} ms, "
+            f"share {100 * shape['kernel_share']:.1f} %; "
+            f"wall {shape['wall_ms']:.3f} ms (plain {shape['plain_wall_ms']:.3f}); bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']})")
+        del calls, vo, valid
+    log(f"phase 30 took {time.perf_counter() - t_start:.1f} s")
+    return rec
 
 
 def run_bf16(dev, paths: dict, smi: str) -> tuple:
@@ -2926,7 +3128,8 @@ def run_bf16(dev, paths: dict, smi: str) -> tuple:
                                                             cfg.test_num_proposals).to(dev).eval())
         convs = []
         launches, ms = frames(model, cfg, batch, ("pts_middle_encoder", "imgpts_neck"),
-                              expect_launches(subm_conv_gemm=4 + 17, subm_conv_gemm_bf16=17, local_attn_fwd_bf16=6),
+                              expect_launches(subm_conv_gemm=4 + 17, subm_conv_gemm_bf16=17, local_attn_fwd_bf16=6,
+                                              **table_launches(1, flags=True)),
                               [n_fp32, 17 - n_fp32], "fusion_base eval", convs)
         # the frame's 17 submanifold convs on their own inputs, gated as they
         # ran: against the plain version, and timed (the frame's K1 time at
@@ -2958,7 +3161,8 @@ def run_bf16(dev, paths: dict, smi: str) -> tuple:
         model = DeepInteraction(pcfg.model, pcfg.data.padded_img_shape, pcfg.test_num_proposals).to(dev).eval()
         init_weights(model, seed=0)
         pp_launches, pp_ms = frames(model, pcfg, pbatch, ("pts_middle_encoder", "img_neck", "imgpts_neck"),
-                                    expect_launches(subm_conv_gemm=4 + 17, subm_conv_gemm_bf16=17),
+                                    expect_launches(subm_conv_gemm=4 + 17, subm_conv_gemm_bf16=17,
+                                                    **table_launches(1, flags=True)),
                                     [pp_fp32, 17 - pp_fp32], "fusion_plusplus eval")
     del model, pbatch
     gc.collect()
@@ -3013,6 +3217,10 @@ def main() -> int:
         lever_launches = run_levers(dev, paths, smi)
         auction, auction_paths = run_auction(dev, paths, fusion_run["train_pkl"], measured["fusion_keys"], smi)
         k1_bf16, k2_bf16, bf16_paths = run_bf16(dev, paths, smi)
+        host = next(DataLoader(NuScenesDataset(fusion_base_config(), paths["val"], train=False), 1,
+                               num_workers=0).epoch(0, shuffle=False))
+        host.pop("pad_count"), host.pop("token")
+        tables = run_tables(dev, to_device(host, fusion_base_config().data, dev), smi)
     finally:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
 
@@ -3026,12 +3234,14 @@ def main() -> int:
                    "fusion_plusplus": "fusion_plusplus eval at the JAX defaults, realistic frame, B=1"}
 
     def by_path(name, eval_n=0):
-        return {eval_path: eval_n, train_path: train_launches.get(name, 0), fusion_path: fusion_launches[name],
-                pp_path: pp_launches[name], pp_train_path: pp_train_launches[name], cli_path: cli_launches[name],
-                **{path: counts[name] for path, counts in cli_paths.items()},
-                **{lever_paths[k]: counts[name] for k, counts in lever_launches.items()},
-                **{path: counts[name] for path, counts in auction_paths.items()},
-                **{path: counts[name] for path, counts in bf16_paths.items()}}
+        # "sparse_tables": the six table wrappers together
+        n = tables_total if name == "sparse_tables" else (lambda counts: counts[name])
+        return {eval_path: eval_n, train_path: n(train_launches), fusion_path: n(fusion_launches),
+                pp_path: n(pp_launches), pp_train_path: n(pp_train_launches), cli_path: n(cli_launches),
+                **{path: n(counts) for path, counts in cli_paths.items()},
+                **{lever_paths[k]: n(counts) for k, counts in lever_launches.items()},
+                **{path: n(counts) for path, counts in auction_paths.items()},
+                **{path: n(counts) for path, counts in bf16_paths.items()}}
 
     fwd = dict(k1["fwd"], shapes=k1_eval["shapes"] + k1["fwd"]["shapes"] + k1_real["shapes"],
                ms_per_frame=k1_eval["ms_per_frame"], ms_per_realistic_frame=k1_real["ms_per_frame"],
@@ -3072,6 +3282,11 @@ def main() -> int:
          "replaces": "deepinteraction_tpu/ops/hungarian.py:82", **auction,
          "path": "fusion_base train step, lap_impl=auction, B=2", "launches_by_path": by_path("auction_lap"),
          "library_ms": None},
+        {"name": "sparse_tables", "route": "cuda", "source": "deepinteraction_tpu_torch/csrc/sparse_tables.cu",
+         "replaces": None, **headline(tables, "realistic eval"),
+         **{k: tables["shapes"][0][k] for k in ("kernel_ms", "kernel_share")},
+         "launches": tables_total(bf16_paths[bf16_path]), "path": bf16_path,
+         "launches_by_path": by_path("sparse_tables", tables_total(eval_launches)), "library_ms": None},
     ]
     log(f"chip_smoke.py took {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

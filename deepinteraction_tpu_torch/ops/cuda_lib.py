@@ -26,7 +26,10 @@ import torch
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("subm_conv.cu", "subm_conv_bf16.cu", "local_attention.cu", "local_attention_bf16.cu", "auction_lap.cu")
+SOURCES = (
+    "subm_conv.cu", "subm_conv_bf16.cu", "local_attention.cu", "local_attention_bf16.cu", "auction_lap.cu",
+    "sparse_tables.cu",
+)
 HEADERS = ("tf32_mma.cuh", "bf16_mma.cuh")  # included by the sources: part of the build's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -55,6 +58,18 @@ _SIGNATURES = {
     "di_auction_lap": ([_P, _P, ctypes.POINTER(ctypes.c_float), _P, _P] + [_I] * 5 + [_P], _I),
     # p, g -> 1 where the benefits are staged in shared memory, 0 where read from L2
     "di_auction_lap_staged": ([_I, _I], _I),
+    # the sparse encoder's tables (ops/sparse_conv.py); geom: int[12], the
+    # kernel, stride, padding and grid, z y x each
+    # coords, valid, dense, k, nz, ny, nx, stream
+    "di_dense_index_map": ([_P] * 3 + [_I] * 4 + [_P], _I),
+    # dense, out_coords, out_valid, table, ko, miss, geom, stream
+    "di_neighbor_table": ([_P] * 4 + [_I] * 2 + [ctypes.POINTER(_I), _P], _I),
+    # nbr, valid, flag, k, t, w, start_hi, stream
+    "di_banded_overflow": ([_P] * 3 + [_I] * 4 + [_P], _I),
+    # coords, valid, scratch, out_coords, out_valid, k, cap, geom, stream
+    "di_downsample_sites": ([_P] * 5 + [_I] * 2 + [ctypes.POINTER(_I), _P], _I),
+    # nbr, inv, ko, taps, k_in, stream
+    "di_inverse_table": ([_P] * 2 + [_I] * 3 + [_P], _I),
     "di_error_string": ([_I], ctypes.c_char_p),
 }
 

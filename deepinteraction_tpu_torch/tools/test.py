@@ -84,13 +84,17 @@ def parse_args(argv: Optional[List[str]] = None):
 
 def launch_counts() -> Dict[str, int]:
     """The port's kernel launch counters (each wrapper counts the launches
-    of its kernel in this process)."""
+    of its kernel in this process; the sparse encoder's six table wrappers
+    too)."""
     from ..ops import hungarian, local_attention as la
+    from ..ops import sparse_conv as sc
     from ..ops import subm_conv as smc
 
     return {f.__name__: f.launches for f in (smc.subm_conv_gemm, smc.subm_conv_gemm_bf16, smc.subm_conv_dgrad,
                                              smc.subm_conv_wgrad, la.local_attn_fwd, la.local_attn_fwd_bf16,
-                                             la.local_attn_bwd, hungarian.auction_lap)}
+                                             la.local_attn_bwd, hungarian.auction_lap, sc.dense_index_map,
+                                             sc.subm_neighbor_table, sc.strided_neighbor_table, sc.banded_overflow,
+                                             sc.downsample_sites, sc.inverse_table)}
 
 
 def _frame_from_fused(boxes, scores, labels, class_names) -> DetectionFrame:
